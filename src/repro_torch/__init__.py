@@ -1,0 +1,14 @@
+"""PyTorch + CUDA port of the LUT-DNN serving path.
+
+A second package beside ``repro`` (the JAX reference), laid out in the
+same way: ``repro_torch.<module>`` is the counterpart of
+``repro.<module>``.  It imports torch and numpy only — never JAX and
+nothing of the ``repro`` package; what it needs from framework-free
+``repro`` modules it keeps as its own copy.
+
+Entry points (``artifact.load_artifact``, ``core.lut_synth.
+tables_from_numpy``, ``kernels.lut_gather.ops.make_network_fn``,
+``launch.registry.ModelRegistry``) run on ``cuda`` unless the caller
+passes ``device="cpu"``; with no card and no such argument they raise
+(see ``repro_torch.device``).
+"""

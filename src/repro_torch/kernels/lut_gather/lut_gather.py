@@ -1,0 +1,419 @@
+"""CUDA LUT kernels for Hopper and their wrappers (port of the Pallas
+kernels in ``repro.kernels.lut_gather.lut_gather``).
+
+Three kernels, in ``csrc/lut_gather.cu``:
+
+* ``lut_gather`` — one layer, one thread per output (row, neuron);
+  replaces ``lut_gather_pallas``.  The ``per_layer`` plan runs it.
+* ``lut_network_fused(pipeline=False)`` — every layer of the network in
+  one launch, one block per tile of batch rows, inter-layer codes in
+  shared memory; replaces ``lut_network_fused_pallas`` in grid mode.
+* ``lut_network_fused(pipeline=True)`` — the persistent form: a grid of
+  ``min(n_tiles, #SMs)`` blocks, each walking its tiles and prefetching
+  the next tile's input codes with ``cp.async`` while the current one
+  computes; replaces the double-buffered ``pipeline=True`` mode.
+
+Each wrapper takes the plain version (``ref.py``) only for tensors on
+the CPU; for a CUDA tensor it launches its kernel or raises.  Each adds
+one to its entry of ``LAUNCHES`` where it launches.
+
+Build: ``nvcc`` compiles the source into a shared library with a plain C
+interface at first use (under a process-wide lock, since a serving
+thread and a hot-swap's warm-up can both make a first call) into
+``_build/`` beside this file, named by the hash of source and flags;
+``ctypes`` loads it.
+
+Shared-memory ledger of the fused kernels (the port's counterpart of the
+reference's VMEM estimate, which is a TPU number and does not carry
+over): a block holds int32 codes for ``rows`` batch rows — the input
+codes (one slot, two for the pipelined kernel) plus two buffers for
+hidden layers' outputs, P for even layers and Q for odd ones.  Table
+slabs are not staged: they are read through the read-only path and stay
+in L2.  Rows per block come from this ledger against the 227 KB
+(232,448-byte) per-block limit, never from the caller's batch size.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from repro_torch.kernels.lut_gather import ref
+
+# H100: most shared memory one block may use (dynamic, opted in above 48 KB)
+SMEM_BUDGET_BYTES = 232_448
+# rows per block when shared memory allows more: 32 rows keep a 256-thread
+# block busy on every layer of the paper's networks while leaving a B=4096
+# batch 128 blocks to spread over the card's 132 SMs
+MAX_BLOCK_ROWS = 32
+
+ENC_U8, ENC_I32, ENC_INT4, ENC_NONE = 0, 1, 2, -1
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(_HERE, "csrc", "lut_gather.cu")
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: Dict[str, int] = {"lut_gather": 0, "lut_network_fused": 0,
+                            "lut_network_fused_pipelined": 0}
+# filled by the first build: library path, seconds, nvcc's -Xptxas -v
+BUILD_INFO: Dict[str, object] = {}
+
+_build_lock = threading.Lock()
+_count_lock = threading.Lock()
+_lib = None
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    with _count_lock:
+        return dict(LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# build + bind
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    found = cand if os.path.exists(cand) else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA LUT kernels are "
+                           "built on a machine with the CUDA toolkit")
+    return found
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source version) and load the kernel library."""
+    global _lib
+    with _build_lock:
+        if _lib is not None:
+            return _lib
+        with open(SOURCE, "rb") as f:
+            src = f.read()
+        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+                             ).hexdigest()[:16]
+        so = os.path.join(BUILD_DIR, f"liblut_gather-{tag}.so")
+        t0 = time.perf_counter()
+        log = ""
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+                                  capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.lut_desc_size.argtypes = []
+        lib.lut_desc_size.restype = i
+        lib.lut_gather_launch.argtypes = [vp, vp, i, vp, vp, vp] + \
+            [i] * 10 + [vp]
+        lib.lut_gather_launch.restype = i
+        lib.lut_fused_launch.argtypes = [vp, vp, i, vp] + [i] * 8 + [vp]
+        lib.lut_fused_launch.restype = i
+        if lib.lut_desc_size() != ctypes.sizeof(_LayerDesc):
+            raise RuntimeError("LayerDesc layout differs between "
+                               "lut_gather.cu and lut_gather.py")
+        BUILD_INFO.update(path=so, seconds=time.perf_counter() - t0,
+                          log=log)
+        _lib = lib
+        return lib
+
+
+class _LayerDesc(ctypes.Structure):
+    """Mirror of ``struct LayerDesc`` in lut_gather.cu."""
+    _fields_ = [("conn", ctypes.c_void_p), ("sub", ctypes.c_void_p),
+                ("add", ctypes.c_void_p)] + \
+        [(n, ctypes.c_int32) for n in (
+            "n_in", "n_out", "A", "F", "in_bits", "sub_bits", "K", "Ka",
+            "sub_enc", "add_enc", "pad0", "pad1")]
+
+
+def _check_rc(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError "
+                           f"{rc}")
+
+
+# ---------------------------------------------------------------------------
+# validated layer arguments
+# ---------------------------------------------------------------------------
+
+def _pow2(x: int) -> bool:
+    return x > 0 and (x & (x - 1)) == 0
+
+
+def _encoding(slab: torch.Tensor, packed: bool, what: str) -> int:
+    if packed:
+        if slab.dtype != torch.uint8:
+            raise TypeError(f"{what}: int4-packed slab must be uint8")
+        return ENC_INT4
+    if slab.dtype == torch.uint8:
+        return ENC_U8
+    if slab.dtype == torch.int32:
+        return ENC_I32
+    raise TypeError(f"{what}: slab dtype {slab.dtype} (want uint8/int32)")
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerArgs:
+    """One layer's slabs and metadata, checked once for the kernels."""
+
+    conn: torch.Tensor
+    sub_table: torch.Tensor
+    add_table: torch.Tensor
+    in_bits: int
+    sub_bits: int
+    sub_packed: bool
+    add_packed: bool
+    n_in: int
+
+    @property
+    def n_out(self) -> int:
+        return self.conn.shape[0]
+
+    @property
+    def use_adder(self) -> bool:
+        return self.add_table.shape[-1] > 0
+
+    @property
+    def K(self) -> int:
+        return self.sub_table.shape[-1] * (2 if self.sub_packed else 1)
+
+    @property
+    def Ka(self) -> int:
+        return self.add_table.shape[-1] * (2 if self.add_packed else 1)
+
+    def plain(self) -> tuple:
+        """Positional arguments of ``ref.lut_layer`` after the codes."""
+        return (self.conn, self.sub_table, self.add_table, self.in_bits,
+                self.sub_bits, self.sub_packed, self.add_packed)
+
+    def desc(self) -> _LayerDesc:
+        n_out, A, F = self.conn.shape
+        return _LayerDesc(
+            self.conn.data_ptr(), self.sub_table.data_ptr(),
+            self.add_table.data_ptr() if self.use_adder else 0,
+            self.n_in, n_out, A, F, self.in_bits, self.sub_bits, self.K,
+            self.Ka if self.use_adder else 1,
+            _encoding(self.sub_table, self.sub_packed, "sub_table"),
+            (_encoding(self.add_table, self.add_packed, "add_table")
+             if self.use_adder else ENC_NONE), 0, 0)
+
+
+def layer_args(conn, sub_table, add_table, in_bits: int, sub_bits: int,
+               sub_packed: bool = False, add_packed: bool = False, *,
+               n_in: int, check_conn: bool = False) -> LayerArgs:
+    """Check one layer's slabs for the kernels and bundle them.
+    Adder on/off is decided by the real ``add_table`` width before
+    anything else; an adder-off layer's slab is never read or packed.
+    ``check_conn`` also proves every fan-in index lies in [0, n_in)
+    (one device sync — done once when an engine is built)."""
+    if conn.dim() != 3 or sub_table.dim() != 3 or add_table.dim() != 2:
+        raise ValueError("want conn (n_out, A, F), sub_table (n_out, A, K) "
+                         "and add_table (n_out, Ka)")
+    n_out, A, F = conn.shape
+    use_adder = add_table.shape[-1] > 0
+    a = LayerArgs(conn=conn, sub_table=sub_table, add_table=add_table,
+                  in_bits=int(in_bits), sub_bits=int(sub_bits),
+                  sub_packed=bool(sub_packed),
+                  add_packed=bool(add_packed) and use_adder, n_in=int(n_in))
+    dev = conn.device
+    for name in ("conn", "sub_table", "add_table"):
+        t = getattr(a, name)
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, conn on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if conn.dtype != torch.int32:
+        raise TypeError("conn must be int32")
+    if sub_table.shape[:2] != (n_out, A) or add_table.shape[0] != n_out:
+        raise ValueError("slab shapes disagree with conn")
+    _encoding(sub_table, a.sub_packed, "sub_table")
+    if use_adder:
+        _encoding(add_table, a.add_packed, "add_table")
+    if not _pow2(a.K) or (use_adder and not _pow2(a.Ka)):
+        raise ValueError(f"table widths must be powers of two "
+                         f"(K={a.K}, Ka={a.Ka})")
+    if a.in_bits * F > 30 or (use_adder and a.sub_bits * A > 30):
+        raise ValueError("packed table address wider than 30 bits")
+    if check_conn and conn.numel() and (
+            int(conn.min()) < 0 or int(conn.max()) >= a.n_in):
+        raise ValueError(f"conn indexes outside [0, {a.n_in})")
+    return a
+
+
+def _device_of(codes: torch.Tensor, tables: torch.device) -> torch.device:
+    """The device a call runs on: the tables' and the codes' alike, the
+    CPU (plain version) or a CUDA card (kernel)."""
+    if codes.device != tables:
+        raise ValueError(f"codes on {codes.device}, tables on {tables}")
+    if tables.type not in ("cpu", "cuda"):
+        raise ValueError(f"no LUT kernel for device {tables}")
+    return tables
+
+
+def _check_codes(codes: torch.Tensor, n_in: int):
+    if codes.dim() != 2 or codes.shape[1] != n_in:
+        raise ValueError(f"codes of shape {tuple(codes.shape)}, want "
+                         f"(B, {n_in})")
+    if codes.dtype != torch.int32:
+        raise TypeError("codes must be int32")
+    if not codes.is_contiguous():
+        raise ValueError("codes must be contiguous")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: one layer
+# ---------------------------------------------------------------------------
+
+def lut_gather(codes: torch.Tensor, layer: LayerArgs) -> torch.Tensor:
+    """codes (B, n_in) int32 -> (B, n_out) int32 through one layer."""
+    dev = _device_of(codes, layer.conn.device)
+    if dev.type == "cpu":
+        return ref.lut_layer(codes, *layer.plain())
+    _check_codes(codes, layer.n_in)
+    lib = build()
+    B = codes.shape[0]
+    out = torch.empty((B, layer.n_out), dtype=torch.int32, device=dev)
+    d = layer.desc()
+    with torch.cuda.device(dev):
+        rc = lib.lut_gather_launch(
+            codes.data_ptr(), out.data_ptr(), B, d.conn, d.sub, d.add,
+            d.n_in, d.n_out, d.A, d.F, d.in_bits, d.sub_bits, d.K, d.Ka,
+            d.sub_enc, d.add_enc, _stream(dev))
+    _check_rc(rc, "lut_gather")
+    _count("lut_gather")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernels 1 and 2: the fused network
+# ---------------------------------------------------------------------------
+
+def buffer_widths(widths: Sequence[int]):
+    """(wP, wQ): widest hidden output of the even / odd layers (the last
+    layer writes device memory and needs no buffer)."""
+    hidden = list(widths[:-1])
+    return (max(hidden[0::2], default=0), max(hidden[1::2], default=0))
+
+
+def smem_bytes_per_row(n_in0: int, widths: Sequence[int],
+                       pipeline: bool) -> int:
+    """Shared memory one batch row claims in a fused block: its input
+    codes (one slot, or two for the pipelined kernel) plus its P and Q
+    hidden-layer buffers, int32 each."""
+    wp, wq = buffer_widths(widths)
+    return 4 * ((2 if pipeline else 1) * n_in0 + wp + wq)
+
+
+def fused_smem_bytes(n_in0: int, widths: Sequence[int], rows: int,
+                     pipeline: bool) -> int:
+    """The ledger: shared memory of one fused block of ``rows`` rows."""
+    return rows * smem_bytes_per_row(n_in0, widths, pipeline)
+
+
+def block_rows(n_in0: int, widths: Sequence[int], pipeline: bool,
+               budget: int = SMEM_BUDGET_BYTES) -> int:
+    """Rows per block: as many as the budget holds, up to MAX_BLOCK_ROWS;
+    0 when not even one row fits."""
+    return min(MAX_BLOCK_ROWS,
+               budget // smem_bytes_per_row(n_in0, widths, pipeline))
+
+
+class FusedNet:
+    """A chain of layers ready for the fused kernels: the checked layer
+    arguments and, on a CUDA device, the per-layer descriptor array in
+    device memory (it holds the slabs' addresses, so the layers are kept
+    alive here)."""
+
+    def __init__(self, layers: Sequence[LayerArgs]):
+        self.layers: List[LayerArgs] = list(layers)
+        if not self.layers:
+            raise ValueError("a fused network needs at least one layer")
+        for prev, nxt in zip(self.layers, self.layers[1:]):
+            if nxt.n_in != prev.n_out:
+                raise ValueError("layer widths do not chain")
+        self.device = self.layers[0].conn.device
+        self.n_in0 = self.layers[0].n_in
+        self.widths = [a.n_out for a in self.layers]
+        self.wp, self.wq = buffer_widths(self.widths)
+        self.desc = None
+        if self.device.type == "cuda":
+            arr = (_LayerDesc * len(self.layers))(
+                *[a.desc() for a in self.layers])
+            self.desc = torch.frombuffer(bytearray(bytes(arr)),
+                                         dtype=torch.uint8).to(self.device)
+
+    def rows(self, pipeline: bool, budget: int = SMEM_BUDGET_BYTES) -> int:
+        return block_rows(self.n_in0, self.widths, pipeline, budget)
+
+    def smem_bytes(self, rows: int, pipeline: bool) -> int:
+        return fused_smem_bytes(self.n_in0, self.widths, rows, pipeline)
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def lut_network_fused(codes: torch.Tensor, net: FusedNet,
+                      rows: Optional[int] = None,
+                      pipeline: bool = False) -> torch.Tensor:
+    """codes (B, n_in0) int32 -> (B, n_out_last) int32 through every
+    layer of ``net`` in one launch.  ``rows`` per block defaults to what
+    the shared-memory ledger allows."""
+    if _device_of(codes, net.device).type == "cpu":
+        return ref.lut_network(codes, [a.plain() for a in net.layers])
+    _check_codes(codes, net.n_in0)
+    rows = net.rows(pipeline) if rows is None else int(rows)
+    smem = net.smem_bytes(rows, pipeline)
+    if rows < 1 or smem > SMEM_BUDGET_BYTES:
+        raise ValueError(f"{rows} rows per block need {smem} bytes of "
+                         f"shared memory (limit {SMEM_BUDGET_BYTES}); "
+                         f"split the network (ops.plan_segments)")
+    lib = build()
+    B = codes.shape[0]
+    out = torch.empty((B, net.widths[-1]), dtype=torch.int32,
+                      device=net.device)
+    n_tiles = -(-B // rows)
+    grid = min(n_tiles, _sm_count(net.device)) if pipeline else n_tiles
+    vec16 = int(codes.data_ptr() % 16 == 0 and net.n_in0 % 4 == 0)
+    with torch.cuda.device(net.device):
+        rc = lib.lut_fused_launch(
+            codes.data_ptr(), out.data_ptr(), B, net.desc.data_ptr(),
+            len(net.layers), rows, net.wp, net.wq, smem, int(pipeline),
+            grid, vec16, _stream(net.device))
+    name = ("lut_network_fused_pipelined" if pipeline
+            else "lut_network_fused")
+    _check_rc(rc, name)
+    _count(name)
+    return out
