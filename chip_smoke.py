@@ -8,8 +8,10 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — compile the CUDA LUT kernels from the checkout's sources;
-             print the build seconds and nvcc's ``-Xptxas -v`` report.
+2. build   — compile the three CUDA kernel libraries (LUT, WKV6, masked
+             matmul) from the checkout's sources, one nvcc each, all
+             started together; print the build seconds and nvcc's
+             ``-Xptxas -v`` report.
 3. golden  — load ``tests/golden/`` (packed and unpacked): every kernel
              reproduces ``golden_io.npz["outputs"]`` exactly and the
              recomputed artifact id matches.
@@ -27,6 +29,33 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              per-layer plans of ``make_network_fn``.  Launch counts are
              zeroed just before and read just after; every kernel must
              have launched.
+6. wkv     — the WKV6 kernel against its plain version
+             (``wkv_chunked_ref`` at chunk 32, run on the card) at
+             rwkv6-3b shapes: B=4 S=512 H=40 K=64 in bf16 and f32, one
+             decode token (S=1) with a nonzero state, a ragged S=77, and
+             every decay at the clamp (S=512; both must be finite);
+             timed with CUDA events and on the device clock (a
+             profiler trace) against the plain version and the bound.
+7. masked_mm — the masked-matmul kernel against both plain versions at
+             the kernels-bench layer (n_in 784, n_out 256, F 6) at
+             B=1024 and B=4096; timed (CUDA events, device clock)
+             against the plain gather, the dense ``torch.addmm`` form
+             (the library call) and the bound; then its entry point (``ops.masked_matmul``) once
+             at each batch, counts zeroed just before and read after.
+8. lm      — rwkv6-3b at full width (32 layers, d_model 2560, vocab
+             65536, bf16), weights from a fixed seed on the card, served
+             through ``repro_torch.launch.serve``: a B=4 x 512-token
+             prefill and 32 greedy decode steps, counts zeroed just
+             before and read just after (32 x 33 WKV launches).  All
+             logits finite.  The kernel path agrees with the plain WKV:
+             in bf16 block by block on the same inputs (prefill and a
+             decode step), and with the same weights in float32 over
+             the whole model (prefill and 32 decode steps fed the same
+             tokens).  A 64-token prefill leaves the state that 64
+             single-token decode steps leave, block by block in bf16
+             and over the whole float32 model.  A profiler trace of one
+             prefill and two decode steps gives the device's busy and
+             idle share and the WKV kernel's share of device time.
 
 Output: a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -67,6 +96,41 @@ KERNELS = {
                                         replaces=f"{TPU_KERNEL}:386"),
     "lut_gather": dict(source=CUDA_SOURCE, replaces=f"{TPU_KERNEL}:280"),
 }
+LUT_KERNELS = tuple(KERNELS)
+KERNELS.update({
+    "masked_matmul": dict(
+        source="src/repro_torch/kernels/masked_matmul/csrc/masked_matmul.cu",
+        replaces="src/repro/kernels/masked_matmul/masked_matmul.py:59"),
+    "wkv6": dict(source="src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+                 replaces="src/repro/kernels/wkv6/wkv6.py:88"),
+})
+
+# Tolerances, each against the plain version on the same card:
+# WKV6: both sides compute in float32 (bf16 inputs are widened exactly)
+# but sum in another order; the reference's own kernel test bound,
+# here relative to the largest magnitude of the output.
+WKV_TOL = 2e-4
+# masked matmul: F float32 products summed in another order
+MM_RTOL = MM_ATOL = 1e-5
+# rwkv6-3b, relative to the largest magnitude of what is compared.
+# bf16, each block on the same inputs, kernel path vs plain WKV: the
+# WKV outputs differ in float32 rounding only and flip a rare bf16
+# rounding of the normed output; 2e-2 is about 5 bf16 ulps (2^-8) of
+# the scale.  bf16, each block, 64-token prefill vs 64 decode steps:
+# matmuls of 256 rows and of 4 rows round in bf16 at other places;
+# 5e-2.  float32 weights, whole model (kernel vs plain WKV, and prefill
+# vs decode steps): float32 roundings (1e-7) that 32 random-weight
+# blocks amplify; 1e-3.
+LM_KERNEL_TOL = 2e-2
+LM_STATE_TOL = 5e-2
+LM_F32_TOL = 1e-3
+# bf16, whole model, prefill and every decode step: the kernel path's
+# logits may part from the plain-WKV model's by at most twice what the
+# plain-WKV model's own logits move when every input embedding value is
+# nudged by one bf16 ulp (how far the model amplifies the smallest
+# change the served dtype can make; the factor 2 allows for two draws
+# of that amplification differing).
+LM_NUDGE_SLACK = 2.0
 
 
 def log(*a):
@@ -149,6 +213,36 @@ def time_ms(fn, inputs, iters: int = 40, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profile_kernels(fn):
+    """Run ``fn`` once under ``torch.profiler`` -> (host wall ms, {kernel
+    name: (device ms, launches)}): the card's own clock for each kernel,
+    so host time between launches is not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = per.get(e.name, (0.0, 0))
+            per[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return wall, per
+
+
+def device_ms(fn, inputs, iters: int = 20) -> float:
+    """Mean device time per call of everything ``fn`` launches, over
+    ``iters`` calls cycling through ``inputs`` (profiler trace)."""
+    fn(inputs[0])
+    _, per = profile_kernels(
+        lambda: [fn(inputs[i % len(inputs)]) for i in range(iters)])
+    return sum(ms for ms, _ in per.values()) / iters
+
+
 def slab_bytes(tables) -> int:
     return sum(t.conn.numel() * 4 + t.sub_table.numel()
                * t.sub_table.element_size() + t.add_table.numel()
@@ -195,14 +289,27 @@ def phase_device():
 
 
 def phase_build():
-    from repro_torch.kernels.lut_gather import lut_gather as K
+    """One nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels.lut_gather import lut_gather as LG
+    from repro_torch.kernels.masked_matmul import masked_matmul as MM
+    from repro_torch.kernels.wkv6 import wkv6 as W
+    libs = [LG.LIBRARY, W.LIBRARY, MM.LIBRARY]
     t0 = time.perf_counter()
-    K.build()
+    with ThreadPoolExecutor(len(libs)) as ex:
+        for fut in [ex.submit(lib.load) for lib in libs]:
+            fut.result()
     secs = time.perf_counter() - t0
-    log(f"[build] {secs:.2f} s -> {K.BUILD_INFO['path']}")
-    for line in str(K.BUILD_INFO["log"]).splitlines():
-        log(f"[build] {line}")
-    return {"seconds": secs, "ptxas": K.BUILD_INFO["log"]}
+    out = {"seconds": secs}
+    log(f"[build] {len(libs)} libraries in {secs:.2f} s")
+    for lib in libs:
+        log(f"[build] {lib.name}: {lib.info['seconds']:.2f} s -> "
+            f"{lib.info['path']}")
+        for line in str(lib.info["log"]).splitlines():
+            log(f"[build] {line}")
+        out[lib.name] = {"seconds": lib.info["seconds"],
+                         "ptxas": lib.info["log"]}
+    return out
 
 
 def _engines(tables, n_in0):
@@ -272,7 +379,7 @@ def phase_width(dev, results):
             for B in (4096, 1000):
                 codes = random_codes(rng, B, spec.in_features, bits0, dev)
                 want = engines["plain"](codes)
-                for name in KERNELS:
+                for name in LUT_KERNELS:
                     got = engines[name](codes)
                     torch.cuda.synchronize()
                     err = max_abs_err(got, want)
@@ -322,18 +429,19 @@ def phase_width(dev, results):
                     ("lut_network_fused_pipelined", fused_bytes, 1),
                     ("lut_gather", per_layer_bytes, len(tables))):
                 ms = time_ms(engines[name], inputs)
+                dms = device_ms(engines[name], inputs)
                 bms, by = bound_ms(nbytes, ops)
                 key = name + ("_int4" if packed else "") + \
                     ("" if B == 4096 else f"_b{B}")
-                results[key] = dict(ms=ms, plain_ms=plain_ms,
+                results[key] = dict(ms=ms, device_ms=dms, plain_ms=plain_ms,
                                     bound_ms=bms, max_abs_err=errs[name],
                                     bound_by=by, bytes=nbytes, ops=ops,
                                     launches_per_forward=launches,
                                     batch=B, int4=packed)
                 log(f"[width] time {name} int4={packed}: {ms:.4f} "
-                    f"ms/forward at B={B} ({launches} launch/forward), "
-                    f"plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by}: "
-                    f"{nbytes} B, {ops} ops)")
+                    f"ms/forward at B={B} ({launches} launch/forward; "
+                    f"device {dms:.4f} ms), plain {plain_ms:.4f} ms, "
+                    f"bound {bms:.5f} ms ({by}: {nbytes} B, {ops} ops)")
     net = K.FusedNet(args)
     results["_timing"] = dict(
         model="HDR-Add2",
@@ -416,7 +524,7 @@ def phase_serve(dev, results):
     check(len(tags) == 2, f"the swap did not land mid-stream: {tags}")
     check(served_counts["lut_network_fused"] > 0,
           "the registry served without launching the fused kernel")
-    for name in KERNELS:
+    for name in LUT_KERNELS:
         check(counts[name] > 0, f"kernel {name} never launched on the "
               f"main path")
     p50, p99 = latency_percentiles_ms(handles, qs=(50, 99))
@@ -432,6 +540,432 @@ def phase_serve(dev, results):
                              swap_blackout_s=r.blackout_s,
                              served_counts=served_counts, counts=counts)
     return counts
+
+
+def _rel_err(got, want):
+    """(max |got - want|, that over max |want|), both as floats."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(want.float().abs().max().item(), 1e-30)
+
+
+def wkv_inputs(dev, B, S, H, K, dtype, seed, clamp=False, with_s0=True):
+    """RWKV6 time-mix inputs as the LM makes them: r, k, v ~ N(0, 1) in
+    ``dtype``, log-decays -exp(-1.5 + 0.5 N) clamped at -1 in float32
+    (or all at the clamp), bonus 0.1 N, state N(0, 1) or None."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    r, k, v = (n(B, S, H, K).to(dtype) for _ in range(3))
+    logw = (torch.full((B, S, H, K), -1.0, device=dev) if clamp else
+            torch.clamp(-torch.exp(-1.5 + 0.5 * n(B, S, H, K)), min=-1.0))
+    s0 = n(B, H, K, K) if with_s0 else None
+    return r, k, v, logw, 0.1 * n(H, K), s0
+
+
+def wkv_bound(r, s0):
+    """(bound ms, by, bytes, flops) of one WKV call: r, k, v in their
+    dtype, logw, u and s0 in float32 read once, o and the final state
+    written once; 4 K^2 flops per token and head (two K x K FMAs)."""
+    B, S, H, K = r.shape
+    n = B * S * H * K
+    nbytes = 3 * n * r.element_size() + 4 * n + 4 * H * K + \
+        (4 * B * H * K * K if s0 is not None else 0) + 4 * n + \
+        4 * B * H * K * K
+    flops = 4 * B * S * H * K * K
+    bms, by = bound_ms(nbytes, flops)
+    return bms, by, nbytes, flops
+
+
+def phase_wkv(dev, results, B=4, S=512, H=40, K=64):
+    """At rwkv6-3b's shapes by default (smaller ones rehearse it)."""
+    import torch
+    from repro_torch.kernels.wkv6 import ops
+    from repro_torch.models.recurrent import WKV_CHUNK, wkv_chunked_ref
+
+    cases = [  # name, (B, S, H, K), dtype, clamp, with_s0
+        ("prefill_bf16", (B, S, H, K), torch.bfloat16, False, False),
+        ("prefill_f32", (B, S, H, K), torch.float32, False, False),
+        ("decode_bf16", (B, 1, H, K), torch.bfloat16, False, True),
+        ("ragged_f32", (B, 77, H, K), torch.float32, False, True),
+        ("clamp_bf16", (B, S, H, K), torch.bfloat16, True, False),
+    ]
+    max_abs = 0.0
+    for i, (name, shape, dtype, clamp, with_s0) in enumerate(cases):
+        args = wkv_inputs(dev, *shape, dtype, seed=100 + i, clamp=clamp,
+                          with_s0=with_s0)
+        o, s = ops.wkv6(*args)
+        want_o, want_s = wkv_chunked_ref(*args, chunk=WKV_CHUNK)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(o).all() and torch.isfinite(s).all())
+        want_finite = bool(torch.isfinite(want_o).all()
+                           and torch.isfinite(want_s).all())
+        check(finite and want_finite,
+              f"[wkv] {name}: non-finite output (kernel {finite}, plain "
+              f"{want_finite})")
+        (eo, ro), (es, rs) = _rel_err(o, want_o), _rel_err(s, want_s)
+        max_abs = max(max_abs, eo, es)
+        log(f"[wkv] {name} {shape} {str(dtype)[6:]}: kernel vs plain "
+            f"(chunk {WKV_CHUNK}) max abs err o {eo:.3e} s {es:.3e}, "
+            f"relative to scale o {ro:.3e} s {rs:.3e} (tolerance "
+            f"{WKV_TOL})")
+        check(ro <= WKV_TOL and rs <= WKV_TOL,
+              f"[wkv] {name}: kernel differs from its plain version")
+        results[f"wkv6_{name}"] = dict(shape=shape, dtype=str(dtype),
+                                       err_o=eo, err_s=es, rel_o=ro,
+                                       rel_s=rs)
+
+    for name in ("prefill_bf16", "prefill_f32", "decode_bf16"):
+        _, shape, dtype, clamp, with_s0 = next(c for c in cases
+                                               if c[0] == name)
+        args = wkv_inputs(dev, *shape, dtype, seed=7, with_s0=with_s0)
+        ms = time_ms(lambda a: ops.wkv6(*a), [args], iters=20)
+        dms = device_ms(lambda a: ops.wkv6(*a), [args])
+        plain_ms = time_ms(lambda a: wkv_chunked_ref(*a), [args], iters=5,
+                           warm=1)
+        bms, by, nbytes, flops = wkv_bound(args[0], args[5])
+        results[f"wkv6_{name}"].update(ms=ms, device_ms=dms,
+                                       plain_ms=plain_ms, bound_ms=bms,
+                                       bound_by=by, bytes=nbytes,
+                                       flops=flops)
+        log(f"[wkv] time {name} {shape}: kernel {ms:.4f} ms (device "
+            f"{dms:.4f} ms), plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
+            f"({by}: {nbytes} B, {flops} flops), {ms / bms:.1f}x the "
+            f"bound ({dms / bms:.1f}x on the device clock)")
+    # the kernels line reports the LM prefill's call (bf16 r, k, v)
+    main = results["wkv6_prefill_bf16"]
+    results["wkv6"] = dict(ms=main["ms"], plain_ms=main["plain_ms"],
+                           bound_ms=main["bound_ms"],
+                           bound_by=main["bound_by"], max_abs_err=max_abs,
+                           library_ms=None)
+
+
+def phase_masked_mm(dev, results, batches=(1024, 4096)):
+    import torch
+    from repro_torch.kernels.masked_matmul import masked_matmul as MM
+    from repro_torch.kernels.masked_matmul import ops, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the dense oracle
+    n_in, n_out, F = 784, 256, 6                    # kernels-bench layer
+    g = torch.Generator(device=dev).manual_seed(44)
+    conn = torch.randint(0, n_in, (n_out, F), generator=g, device=dev,
+                         dtype=torch.int32)
+    w = torch.randn((n_out, F), generator=g, device=dev)
+    bias = torch.randn((n_out,), generator=g, device=dev)
+    dense = ref.dense_weights(conn, w, n_in)
+    cols = int(torch.unique(conn).numel())
+    max_abs = 0.0
+    xs_of = {}
+    for B in batches:
+        # rotating inputs, together larger than the 50 MB L2
+        xs = [torch.randn((B, n_in), generator=g, device=dev)
+              for _ in range(-(-64 * 2 ** 20 // (4 * B * n_in)))]
+        xs_of[B] = xs[0]
+        got = ops.masked_matmul(xs[0], conn, w, bias)
+        for form, want in (
+                ("gather", ref.masked_matmul(xs[0], conn, w, bias)),
+                ("dense", ref.masked_matmul_dense(xs[0], conn, w, n_in,
+                                                  bias))):
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            max_abs = max(max_abs, err)
+            ok = torch.allclose(got, want, rtol=MM_RTOL, atol=MM_ATOL)
+            log(f"[masked_mm] B={B}: kernel vs plain {form} max abs err "
+                f"{err:.3e} (rtol {MM_RTOL}, atol {MM_ATOL}: "
+                f"{'ok' if ok else 'FAIL'})")
+            check(ok, f"[masked_mm] B={B}: kernel differs from the plain "
+                  f"{form} form")
+        ms = time_ms(lambda x: ops.masked_matmul(x, conn, w, bias), xs)
+        plain_ms = time_ms(lambda x: ref.masked_matmul(x, conn, w, bias),
+                           xs, iters=20)
+        library_ms = time_ms(lambda x: torch.addmm(bias, x, dense), xs)
+        dms = device_ms(lambda x: ops.masked_matmul(x, conn, w, bias), xs)
+        library_dms = device_ms(lambda x: torch.addmm(bias, x, dense), xs)
+        nbytes = 4 * B * cols + 2 * 4 * n_out * F + 4 * n_out + \
+            4 * B * n_out
+        flops = 2 * B * n_out * F + B * n_out
+        bms, by = bound_ms(nbytes, flops)
+        results[f"masked_matmul_b{B}"] = dict(
+            ms=ms, device_ms=dms, plain_ms=plain_ms, library_ms=library_ms,
+            library_device_ms=library_dms, bound_ms=bms,
+            bound_by=by, bytes=nbytes, flops=flops, columns_read=cols,
+            rows_per_block=MM.block_plan(n_in)[0])
+        log(f"[masked_mm] time B={B}: kernel {ms:.4f} ms (device "
+            f"{dms:.4f} ms), plain gather {plain_ms:.4f} ms, dense addmm "
+            f"(library) {library_ms:.4f} ms (device {library_dms:.4f} ms), "
+            f"bound {bms:.5f} ms ({by}: {nbytes} B for {cols} of {n_in} "
+            f"columns, {flops} flops), {ms / bms:.1f}x the bound "
+            f"({dms / bms:.1f}x on the device clock)")
+    main = results[f"masked_matmul_b{batches[0]}"]
+    results["masked_matmul"] = dict(
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], max_abs_err=max_abs)
+
+    # ---- its entry point (no caller in the package but the tests):
+    # counts zeroed just before, read just after
+    MM.reset_launch_counts()
+    for x in xs_of.values():
+        y = ops.masked_matmul(x, conn, w, bias)
+        check(bool(torch.isfinite(y).all()), "[masked_mm] non-finite")
+    counts = MM.launch_counts()
+    # ----
+    check(counts["masked_matmul"] == len(batches),
+          f"[masked_mm] entry point launched {counts}")
+    log(f"[masked_mm] launches through ops.masked_matmul: {counts}")
+    return counts
+
+
+def _cast_params(tree, dtype):
+    """The same weights with every bf16 leaf in ``dtype`` (exact for
+    float32)."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: _cast_params(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_params(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.dtype == torch.bfloat16 else tree
+
+
+def _nudge_embeddings(params):
+    """The same weights with every embedding value one bf16 ulp further
+    from zero (its bit pattern plus one): each input to the first block
+    moved by the smallest step the served dtype has."""
+    import torch
+    table = params["embed"]["table"]
+    assert table.dtype == torch.bfloat16
+    nudged = (table.view(torch.int16) + 1).view(torch.bfloat16)
+    return {**params, "embed": {**params["embed"], "table": nudged}}
+
+
+def _block_inputs(cfg, params, toks, LM):
+    """The residual stream entering each block of a kernel-path prefill
+    of ``toks``."""
+    x = LM._embed(cfg, params, toks)
+    cache = LM.init_cache(cfg, toks.shape[0], toks.shape[1], toks.device)
+    xs = []
+    for i, (kind, bp) in enumerate(zip(cfg.kinds, params["blocks"])):
+        xs.append(x)
+        x, _ = LM.block_apply(cfg, kind, bp, x, cache["blocks"][i])
+    return xs
+
+
+def _state_rel(a, b):
+    return max(_rel_err(a[k], b[k])[1] for k in ("S", "x_tm", "x_cm"))
+
+
+def phase_lm(dev, results, smoke=False, B=4, P=512, GEN=32):
+    """rwkv6-3b at full width by default (``smoke`` rehearses it)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch import serve
+    from repro_torch.models import lm as LM
+    from repro_torch.models import registry as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # float32 checks
+    t0 = time.perf_counter()
+    cfg, params = serve.init_lm("rwkv6-3b", smoke=smoke, device=dev,
+                                seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(smoke or (cfg.n_layers, cfg.d_model, cfg.vocab, cfg.dtype)
+          == (32, 2560, 65536, torch.bfloat16),
+          f"[lm] not the full-width config: {cfg}")
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads x {cfg.d_model // cfg.n_heads}, vocab "
+        f"{cfg.vocab}, {str(cfg.dtype)[6:]}; {n_params} weights drawn "
+        f"on the card in {init_s:.2f} s (param_count "
+        f"{R.param_count(cfg)[0]})")
+    prompt = serve.make_prompt(cfg, B, P, seed=0, device=dev)
+    serve.serve_lm(params, cfg, prompt[:, :64], gen=2)      # warm-up
+
+    # ---- the main path: counts zeroed just before, read just after
+    wkv6.reset_launch_counts()
+    res = serve.serve_lm(params, cfg, prompt, gen=GEN, keep_logits=True)
+    counts = wkv6.launch_counts()
+    # ----
+    want_launches = cfg.n_layers * (1 + GEN)
+    check(counts["wkv6"] == want_launches,
+          f"[lm] {counts['wkv6']} WKV launches, want {want_launches}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in res.logits),
+          "[lm] non-finite logits")
+    decode_ms = res.decode_s / GEN * 1e3
+    log(f"[lm] served B={B} x {P}-token prefill + {GEN} greedy decode "
+        f"steps: prefill {res.prefill_s * 1e3:.2f} ms, decode "
+        f"{decode_ms:.3f} ms/token step, {res.tokens_per_s:.1f} tokens/s; "
+        f"WKV launches {counts['wkv6']} = {cfg.n_layers} x (1 + {GEN}); "
+        f"first tokens {res.tokens[0, :8].tolist()}")
+    out = dict(batch=B, prompt_len=P, gen=GEN, init_s=init_s,
+               prefill_ms=res.prefill_s * 1e3,
+               decode_ms_per_step=decode_ms,
+               tokens_per_s=res.tokens_per_s, counts=counts,
+               params=n_params)
+    plain = dataclasses.replace(cfg, use_wkv_kernel=False)
+
+    def whole_model(c, p):
+        """Prefill logits, then each decode step's, fed res.tokens."""
+        prefill = R.make_prefill_step(c, P + GEN)
+        step = R.make_serve_step(c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(p, prompt)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        seq = [logits]
+        for i in range(GEN):
+            logits, cache = step(p, cache, res.tokens[:, i:i + 1], P + i)
+            seq.append(logits)
+        return seq, secs
+
+    # (1) kernel vs plain WKV, bf16, block by block on the same inputs:
+    # each block of the prefill, then one decode step through every
+    # block from the prefill's state.  Random weights amplify a single
+    # bf16 rounding flip from block to block (a whole-model bf16
+    # comparison parts by ~15% of the logits' scale; see PERF.md), so
+    # the bf16 check holds each block to its own inputs.
+    xs = _block_inputs(cfg, params, prompt, LM)
+    blk_rel = 0.0
+    states = []
+    for i, (kind, bp) in enumerate(zip(cfg.kinds, params["blocks"])):
+        zero = LM.block_cache_init(cfg, kind, B, P, dev)
+        yk, ck = LM.block_apply(cfg, kind, bp, xs[i], zero)
+        yp, cp = LM.block_apply(plain, kind, bp, xs[i], zero)
+        blk_rel = max(blk_rel, _rel_err(yk, yp)[1], _state_rel(ck, cp))
+        states.append(ck)
+    x = LM._embed(cfg, params, res.tokens[:, :1])
+    for i, (kind, bp) in enumerate(zip(cfg.kinds, params["blocks"])):
+        yk, ck = LM.block_apply(cfg, kind, bp, x, states[i])
+        yp, cp = LM.block_apply(plain, kind, bp, x, states[i])
+        blk_rel = max(blk_rel, _rel_err(yk, yp)[1], _state_rel(ck, cp))
+        x = yk
+    del xs, states
+    log(f"[lm] kernel vs plain WKV, bf16, each block on the same inputs "
+        f"(prefill and one decode step): block outputs and states max "
+        f"error relative to scale {blk_rel:.3e} (tolerance "
+        f"{LM_KERNEL_TOL})")
+    check(blk_rel <= LM_KERNEL_TOL,
+          "[lm] a block's kernel path differs from its plain-WKV path")
+
+    # (2) the whole bf16 model, kernel path vs plain WKV, held to the
+    # plain-WKV model against itself with each input nudged one bf16 ulp
+    seq_p, plain_prefill_s = whole_model(plain, params)
+    seq_n, _ = whole_model(plain, _nudge_embeddings(params))
+
+    def gap(seq_a, seq_b):
+        rels = [_rel_err(a, b)[1] for a, b in zip(seq_a, seq_b)]
+        agree = float(torch.stack([a.argmax(-1) == b.argmax(-1) for a, b
+                                   in zip(seq_a, seq_b)]).float().mean())
+        return rels, agree
+
+    bf16_rels, bf16_agree = gap(res.logits, seq_p)
+    nudge_rels, nudge_agree = gap(seq_n, seq_p)
+    del seq_p, seq_n
+    log(f"[lm] whole model, bf16, prefill and {GEN} decode steps, logits "
+        f"max error relative to scale: kernel vs plain WKV "
+        f"{max(bf16_rels):.3e} (argmax agrees on {bf16_agree:.4f} of "
+        f"rows); plain WKV vs itself with inputs nudged one ulp "
+        f"{max(nudge_rels):.3e} (argmax {nudge_agree:.4f}); ratio "
+        f"{max(bf16_rels) / max(nudge_rels):.3f} (tolerance "
+        f"{LM_NUDGE_SLACK}); plain-WKV prefill "
+        f"{plain_prefill_s * 1e3:.2f} ms")
+    check(max(bf16_rels) <= LM_NUDGE_SLACK * max(nudge_rels),
+          "[lm] bf16 model: the kernel path parts from plain WKV by more "
+          "than a one-ulp nudge of the inputs moves it")
+
+    # (3) the same weights in float32, whole model: kernel vs plain WKV
+    p32 = _cast_params(params, torch.float32)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    seq_k, _ = whole_model(c32, p32)
+    seq_p, _ = whole_model(dataclasses.replace(c32, use_wkv_kernel=False),
+                           p32)
+    f32_rels = [_rel_err(a, b)[1] for a, b in zip(seq_k, seq_p)]
+    del seq_k, seq_p
+    log(f"[lm] kernel vs plain WKV, float32 weights, whole model: logits "
+        f"max error relative to scale: prefill {f32_rels[0]:.3e}, decode "
+        f"max {max(f32_rels[1:]):.3e} (tolerance {LM_F32_TOL})")
+    check(max(f32_rels) <= LM_F32_TOL,
+          "[lm] float32 model: kernel path differs from plain WKV")
+
+    # (4) a 64-token prefill vs 64 single-token decode steps: bf16 block
+    # by block on the same inputs, and the float32 whole model
+    toks = serve.make_prompt(cfg, B, 64, seed=2, device=dev)
+    xs = _block_inputs(cfg, params, toks, LM)
+    state_rel = 0.0
+    for i, (kind, bp) in enumerate(zip(cfg.kinds, params["blocks"])):
+        _, cp = LM.block_apply(cfg, kind, bp, xs[i],
+                               LM.block_cache_init(cfg, kind, B, 64, dev))
+        cd = LM.block_cache_init(cfg, kind, B, 64, dev)
+        for t in range(64):
+            _, cd = LM.block_apply(cfg, kind, bp, xs[i][:, t:t + 1], cd)
+        state_rel = max(state_rel, _state_rel(cd, cp))
+    del xs
+    lp, cache_p = LM.prefill(p32, c32, toks, 64)
+    cache_d = LM.init_cache(c32, B, 64, dev)
+    for t in range(64):
+        ld, cache_d = LM.decode_step(p32, c32, cache_d, toks[:, t:t + 1], t)
+    f32_state = max(_state_rel(d, q) for d, q in zip(cache_d["blocks"],
+                                                     cache_p["blocks"]))
+    f32_logit = _rel_err(ld, lp)[1]
+    del p32, cache_p, cache_d
+    torch.cuda.empty_cache()
+    log(f"[lm] 64-token prefill vs 64 decode steps: bf16, each block on "
+        f"the same inputs: state max error relative to scale "
+        f"{state_rel:.3e} (tolerance {LM_STATE_TOL}); float32 weights, "
+        f"whole model: state {f32_state:.3e}, last logits "
+        f"{f32_logit:.3e} (tolerance {LM_F32_TOL})")
+    check(state_rel <= LM_STATE_TOL,
+          "[lm] prefill and decode steps leave different states")
+    check(f32_state <= LM_F32_TOL and f32_logit <= LM_F32_TOL,
+          "[lm] float32 model: prefill and decode steps differ")
+    out.update(plain_wkv_prefill_ms=plain_prefill_s * 1e3,
+               block_kernel_vs_plain_rel=blk_rel,
+               bf16_whole_model_rel=bf16_rels, bf16_argmax_agree=bf16_agree,
+               bf16_nudge_rel=nudge_rels, bf16_nudge_argmax_agree=nudge_agree,
+               f32_kernel_vs_plain_rel=f32_rels,
+               block_prefill_vs_decode_state_rel=state_rel,
+               f32_prefill_vs_decode_state_rel=f32_state,
+               f32_prefill_vs_decode_logits_rel=f32_logit)
+
+    # where the time goes: one prefill, then two decode steps, traced
+    prefill = R.make_prefill_step(cfg, P + GEN)
+    step = R.make_serve_step(cfg)
+    _, cache = prefill(params, prompt)
+    for what, fn in (
+            ("prefill", lambda: prefill(params, prompt)),
+            ("2 decode steps", lambda: [step(params, cache, res.tokens[
+                :, i:i + 1], P + i) for i in range(2)])):
+        wall, per = profile_kernels(fn)
+        busy = sum(ms for ms, _ in per.values())
+        launches = sum(n for _, n in per.values())
+        wkv_ms = sum(ms for name, (ms, _) in per.items()
+                     if name.startswith("void wkv6_kernel"))
+        top = sorted(per.items(), key=lambda kv: -kv[1][0])[:5]
+        log(f"[lm] trace, {what}: host wall {wall:.2f} ms, device busy "
+            f"{busy:.2f} ms (idle share {1 - busy / wall:.3f}), "
+            f"{launches} kernels; WKV kernel {wkv_ms:.3f} ms "
+            f"({wkv_ms / busy:.3f} of device time); top: "
+            + "; ".join(f"{name[:40]} {ms:.2f} ms x{n}"
+                        for name, (ms, n) in top))
+        out[f"trace_{what.replace(' ', '_')}"] = dict(
+            wall_ms=wall, device_busy_ms=busy, kernels=launches,
+            wkv_ms=wkv_ms, top=[(name, ms, n) for name, (ms, n) in top])
+    results["_lm"] = out
+    return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> int:
@@ -457,7 +991,10 @@ def main() -> int:
     phase_golden(dev)
     results = {}
     phase_width(dev, results)
-    counts = phase_serve(dev, results)
+    counts = dict(phase_serve(dev, results))
+    phase_wkv(dev, results)
+    counts.update(phase_masked_mm(dev, results))
+    counts.update(phase_lm(dev, results))
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -465,9 +1002,12 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": counts[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms")})
+        check(counts[name] > 0, f"kernel {name} never launched on its "
+              f"path")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "build": build, "results": results},

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the LUT-DNN serving path.
+"""PyTorch + CUDA port of the LUT-DNN serving path and the RWKV6
+language model.
 
 A second package beside ``repro`` (the JAX reference), laid out in the
 same way: ``repro_torch.<module>`` is the counterpart of
@@ -8,7 +9,8 @@ nothing of the ``repro`` package; what it needs from framework-free
 
 Entry points (``artifact.load_artifact``, ``core.lut_synth.
 tables_from_numpy``, ``kernels.lut_gather.ops.make_network_fn``,
-``launch.registry.ModelRegistry``) run on ``cuda`` unless the caller
-passes ``device="cpu"``; with no card and no such argument they raise
-(see ``repro_torch.device``).
+``launch.registry.ModelRegistry``, ``launch.serve.init_lm`` /
+``serve_lm``) run on ``cuda`` unless the caller passes ``device="cpu"``;
+with no card and no such argument they raise (see
+``repro_torch.device``).
 """

@@ -15,13 +15,11 @@ Three kernels, in ``csrc/lut_gather.cu``:
 
 Each wrapper takes the plain version (``ref.py``) only for tensors on
 the CPU; for a CUDA tensor it launches its kernel or raises.  Each adds
-one to its entry of ``LAUNCHES`` where it launches.
+one to its count in ``LIBRARY`` where it launches.
 
-Build: ``nvcc`` compiles the source into a shared library with a plain C
-interface at first use (under a process-wide lock, since a serving
-thread and a hot-swap's warm-up can both make a first call) into
-``_build/`` beside this file, named by the hash of source and flags;
-``ctypes`` loads it.
+Build: ``repro_torch.kernels.build`` compiles the source with ``nvcc``
+at first use into ``_build/`` beside this file and loads it with
+``ctypes``.
 
 Shared-memory ledger of the fused kernels (the port's counterpart of the
 reference's VMEM estimate, which is a TPU number and does not carry
@@ -36,16 +34,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import os
-import shutil
-import subprocess
-import threading
-import time
-from typing import Dict, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
+from repro_torch.kernels.build import KernelLibrary, check_rc, stream
 from repro_torch.kernels.lut_gather import ref
 
 # H100: most shared memory one block may use (dynamic, opted in above 48 KB)
@@ -57,92 +51,8 @@ MAX_BLOCK_ROWS = 32
 
 ENC_U8, ENC_I32, ENC_INT4, ENC_NONE = 0, 1, 2, -1
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "lut_gather.cu")
-BUILD_DIR = os.path.join(_HERE, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-LAUNCHES: Dict[str, int] = {"lut_gather": 0, "lut_network_fused": 0,
-                            "lut_network_fused_pipelined": 0}
-# filled by the first build: library path, seconds, nvcc's -Xptxas -v
-BUILD_INFO: Dict[str, object] = {}
-
-_build_lock = threading.Lock()
-_count_lock = threading.Lock()
-_lib = None
-
-
-def _count(name: str) -> None:
-    with _count_lock:
-        LAUNCHES[name] += 1
-
-
-def reset_launch_counts() -> None:
-    with _count_lock:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
-
-
-def launch_counts() -> Dict[str, int]:
-    with _count_lock:
-        return dict(LAUNCHES)
-
-
-# ---------------------------------------------------------------------------
-# build + bind
-# ---------------------------------------------------------------------------
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    found = cand if os.path.exists(cand) else shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA LUT kernels are "
-                           "built on a machine with the CUDA toolkit")
-    return found
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source version) and load the kernel library."""
-    global _lib
-    with _build_lock:
-        if _lib is not None:
-            return _lib
-        with open(SOURCE, "rb") as f:
-            src = f.read()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                             ).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, f"liblut_gather-{tag}.so")
-        t0 = time.perf_counter()
-        log = ""
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                                  capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.lut_desc_size.argtypes = []
-        lib.lut_desc_size.restype = i
-        lib.lut_gather_launch.argtypes = [vp, vp, i, vp, vp, vp] + \
-            [i] * 10 + [vp]
-        lib.lut_gather_launch.restype = i
-        lib.lut_fused_launch.argtypes = [vp, vp, i, vp] + [i] * 8 + [vp]
-        lib.lut_fused_launch.restype = i
-        if lib.lut_desc_size() != ctypes.sizeof(_LayerDesc):
-            raise RuntimeError("LayerDesc layout differs between "
-                               "lut_gather.cu and lut_gather.py")
-        BUILD_INFO.update(path=so, seconds=time.perf_counter() - t0,
-                          log=log)
-        _lib = lib
-        return lib
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                      "lut_gather.cu")
 
 
 class _LayerDesc(ctypes.Structure):
@@ -154,10 +64,24 @@ class _LayerDesc(ctypes.Structure):
             "sub_enc", "add_enc", "pad0", "pad1")]
 
 
-def _check_rc(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError "
-                           f"{rc}")
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.lut_desc_size.argtypes = []
+    lib.lut_desc_size.restype = i
+    lib.lut_gather_launch.argtypes = [vp, vp, i, vp, vp, vp] + [i] * 10 + [vp]
+    lib.lut_gather_launch.restype = i
+    lib.lut_fused_launch.argtypes = [vp, vp, i, vp] + [i] * 8 + [vp]
+    lib.lut_fused_launch.restype = i
+    if lib.lut_desc_size() != ctypes.sizeof(_LayerDesc):
+        raise RuntimeError("LayerDesc layout differs between "
+                           "lut_gather.cu and lut_gather.py")
+
+
+LIBRARY = KernelLibrary(SOURCE, ("lut_gather", "lut_network_fused",
+                                 "lut_network_fused_pipelined"), _bind)
+build = LIBRARY.load
+reset_launch_counts = LIBRARY.reset_counts
+launch_counts = LIBRARY.counts
 
 
 # ---------------------------------------------------------------------------
@@ -288,10 +212,6 @@ def _check_codes(codes: torch.Tensor, n_in: int):
         raise ValueError("codes must be contiguous")
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 # ---------------------------------------------------------------------------
 # kernel 3: one layer
 # ---------------------------------------------------------------------------
@@ -310,9 +230,9 @@ def lut_gather(codes: torch.Tensor, layer: LayerArgs) -> torch.Tensor:
         rc = lib.lut_gather_launch(
             codes.data_ptr(), out.data_ptr(), B, d.conn, d.sub, d.add,
             d.n_in, d.n_out, d.A, d.F, d.in_bits, d.sub_bits, d.K, d.Ka,
-            d.sub_enc, d.add_enc, _stream(dev))
-    _check_rc(rc, "lut_gather")
-    _count("lut_gather")
+            d.sub_enc, d.add_enc, stream(dev))
+    check_rc(rc, "lut_gather")
+    LIBRARY.count("lut_gather")
     return out
 
 
@@ -411,9 +331,9 @@ def lut_network_fused(codes: torch.Tensor, net: FusedNet,
         rc = lib.lut_fused_launch(
             codes.data_ptr(), out.data_ptr(), B, net.desc.data_ptr(),
             len(net.layers), rows, net.wp, net.wq, smem, int(pipeline),
-            grid, vec16, _stream(net.device))
+            grid, vec16, stream(net.device))
     name = ("lut_network_fused_pipelined" if pipeline
             else "lut_network_fused")
-    _check_rc(rc, name)
-    _count(name)
+    check_rc(rc, name)
+    LIBRARY.count(name)
     return out

@@ -1,11 +1,12 @@
-"""The port stands alone: importing every module of ``repro_torch``
-loads neither JAX nor anything of the JAX package ``repro``."""
+"""The port stands alone: importing every module of ``repro_torch``, and
+the GPU check ``chip_smoke.py``, loads neither JAX nor anything of the
+JAX package ``repro``."""
 import os
 import subprocess
 import sys
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "src")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
 
 PROBE = """
 import importlib, pkgutil, sys
@@ -14,6 +15,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro")
              or m.startswith(("jax.", "jaxlib.", "repro.")))
@@ -24,8 +27,8 @@ sys.exit(1 if bad else 0)
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     env = dict(os.environ, PYTHONPATH=SRC)
-    proc = subprocess.run([sys.executable, "-c", PROBE], env=env,
+    proc = subprocess.run([sys.executable, "-c", PROBE, ROOT], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 15, proc.stdout
+    assert n_modules >= 30, proc.stdout

@@ -88,3 +88,76 @@ def test_wrapper_refuses_mismatched_devices(cuda):
         fn(torch.zeros((4, art.n_in), dtype=torch.int32))   # CPU codes
     with pytest.raises(TypeError):
         fn(torch.zeros((4, art.n_in), dtype=torch.int64, device=cuda))
+
+
+def _wkv_inputs(B, S, H, K, dtype, cuda, seed, clamp=False):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+
+    r, k, v = (n(B, S, H, K).to(dtype) for _ in range(3))
+    logw = (torch.full((B, S, H, K), -1.0, device=cuda) if clamp else
+            torch.clamp(-torch.exp(-1.5 + 0.5 * n(B, S, H, K)), min=-1.0))
+    return r, k, v, logw, 0.1 * n(H, K), n(B, H, K, K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,clamp,with_s0", [
+    (2, 77, 3, 64, False, True),     # ragged S, LM head size
+    (3, 1, 2, 64, False, True),      # one decode token
+    (1, 40, 2, 16, False, False),    # s0 = None, smoke head size
+    (1, 300, 2, 32, True, False),    # every decay at the clamp
+])
+def test_wkv6_kernel_matches_plain(cuda, dtype, B, S, H, K, clamp,
+                                   with_s0):
+    """Kernel 5 against the plain chunk-32 form on the same card, in
+    float32 arithmetic on both sides: within 2e-4 of the output scale."""
+    from repro_torch.kernels.wkv6 import ops, wkv6
+    r, k, v, logw, u, s0 = _wkv_inputs(B, S, H, K, dtype, cuda, seed=S,
+                                       clamp=clamp)
+    s0 = s0 if with_s0 else None
+    wkv6.reset_launch_counts()
+    o, s = ops.wkv6(r, k, v, logw, u, s0)
+    want_o, want_s = ops.wkv6_reference(r, k, v, logw, u, s0)
+    torch.cuda.synchronize()
+    assert wkv6.launch_counts() == {"wkv6": 1}
+    assert o.dtype == s.dtype == torch.float32
+    for got, want in ((o, want_o), (s, want_s)):
+        assert torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        assert err <= 2e-4 * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("B,n_in,n_out,F", [
+    (1024, 784, 256, 6), (37, 50, 19, 3), (5, 70000, 33, 4)])
+def test_masked_matmul_kernel_matches_plain(cuda, B, n_in, n_out, F,
+                                            with_bias):
+    """Kernel 4 against both plain versions (float32; the dense product
+    with TF32 off), and its in-kernel range check.  The last shape's rows
+    exceed shared memory: the unstaged kernel."""
+    from repro_torch.kernels.masked_matmul import masked_matmul as mm
+    from repro_torch.kernels.masked_matmul import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(n_in)
+    x = torch.randn((B, n_in), generator=g, device=cuda)
+    conn = torch.randint(0, n_in, (n_out, F), generator=g, device=cuda,
+                         dtype=torch.int32)
+    w = torch.randn((n_out, F), generator=g, device=cuda)
+    b = torch.randn((n_out,), generator=g, device=cuda) if with_bias \
+        else None
+    mm.reset_launch_counts()
+    got = mm.masked_matmul(x, conn, w, b)
+    for want in (ref.masked_matmul(x, conn, w, b),
+                 ref.masked_matmul_dense(x, conn, w, n_in, b)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert mm.launch_counts() == {"masked_matmul": 1}
+    # an index outside [0, n_in) makes its output NaN, the rest unchanged
+    bad = conn.clone()
+    bad[0, 0], bad[1, F - 1] = n_in, -1
+    y = mm.masked_matmul(x, bad, w, b)
+    assert torch.isnan(y[:, :2]).all()
+    torch.testing.assert_close(y[:, 2:], got[:, 2:], rtol=0, atol=0)
