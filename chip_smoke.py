@@ -18,9 +18,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 4. width   — HDR-Add2 (MNIST 784 -> 256,100x4,10, F=4, A=2) and
              JSC-XL-Add2 (7-bit inputs, 4096-entry adder tables) tables
              drawn from a numpy seed: each kernel equals its plain
-             PyTorch version on the card bit for bit, at B=4096 and a
-             ragged B=1000, slabs packed and unpacked; timed with CUDA
-             events against the plain version and the bytes bound.
+             PyTorch version on the card bit for bit, at B=4096, a
+             ragged B=1000, the registry's B=256 and B=1, slabs packed
+             and unpacked; both timed at B=4096 and B=256 with CUDA
+             events, the profiler's device clock and with the calls
+             queued ahead of the card (``queued_ms``), against the plain
+             version and the bytes bound.
 5. serve   — the main path: HDR-Add2 saved as an artifact, served through
              ``ModelRegistry`` on ``cuda`` (~2000 Poisson requests, one
              hot-swap to a second seed mid-stream: 0 failed, 0 dropped,
@@ -31,11 +34,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              have launched.
 6. wkv     — the WKV6 kernel against its plain version
              (``wkv_chunked_ref`` at chunk 32, run on the card) at
-             rwkv6-3b shapes: B=4 S=512 H=40 K=64 in bf16 and f32, one
-             decode token (S=1) with a nonzero state, a ragged S=77, and
-             every decay at the clamp (S=512; both must be finite);
-             timed with CUDA events and on the device clock (a
-             profiler trace) against the plain version and the bound.
+             rwkv6-3b shapes: B=4 S=512 H=40 K=64 in
+             bf16 and f32, one decode token (S=1) with a nonzero state, a
+             ragged S=77, and every decay at the clamp (S=512; both must
+             be finite); timed with CUDA events, on the device clock and
+             queued, against the plain version and the bound.
 7. masked_mm — the masked-matmul kernel against both plain versions at
              the kernels-bench layer (n_in 784, n_out 256, F 6) at
              B=1024 and B=4096; timed (CUDA events, device clock)
@@ -57,8 +60,12 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              prefill and two decode steps gives the device's busy and
              idle share and the WKV kernel's share of device time.
 
-Output: a ``kernels`` JSON line, the ``nvidia-smi`` line, and as the
-last line ``{"ok": true, "device": {...}}``.  Details go to
+Output: a ``kernels`` JSON line (each kernel's ``ms`` by CUDA events
+and ``device_ms`` on the device clock, beside its bound, plain and
+library times, at the shape where its path launches it: the LUT kernels
+at HDR-Add2's 256-row micro-batch with int4 slabs, WKV6 at the prefill
+call), the ``nvidia-smi`` line, and as the last line
+``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -234,13 +241,54 @@ def profile_kernels(fn):
     return wall, per
 
 
-def device_ms(fn, inputs, iters: int = 20) -> float:
-    """Mean device time per call of everything ``fn`` launches, over
-    ``iters`` calls cycling through ``inputs`` (profiler trace)."""
+def device_ms(fn, inputs, kernel: str = "", per_call=1, iters: int = 20,
+              tries: int = 3):
+    """Mean device time per call of the kernels whose name contains
+    ``kernel`` that ``fn`` launches, over ``iters`` calls cycling through
+    ``inputs`` (profiler trace, the card's own clock).  The trace must
+    hold exactly ``iters * per_call`` such kernels (any number above 0
+    when ``per_call`` is None, for a library call whose kernels are not
+    ours): one that misses some is taken again, up to ``tries`` times,
+    and then the time is None (not measured), never a partial sum."""
     fn(inputs[0])
-    _, per = profile_kernels(
-        lambda: [fn(inputs[i % len(inputs)]) for i in range(iters)])
-    return sum(ms for ms, _ in per.values()) / iters
+    for _ in range(tries):
+        _, per = profile_kernels(
+            lambda: [fn(inputs[i % len(inputs)]) for i in range(iters)])
+        hits = [(ms, n) for name, (ms, n) in per.items() if kernel in name]
+        n = sum(n for _, n in hits)
+        if n == iters * per_call if per_call is not None else n > 0:
+            return sum(ms for ms, _ in hits) / iters
+        log(f"[trace] {kernel}: {n} of {iters * per_call} launches in the "
+            f"trace ({sum(k for _, k in per.values())} kernels of "
+            f"{len(per)} names); tracing again")
+    return None
+
+
+def queued_ms(fn, inputs, iters: int = 20, spin_s: float = 0.02) -> float:
+    """Mean time per call on the card with the host out of the way: a spin
+    kernel (``torch.cuda._sleep``) holds the stream while ``iters`` calls
+    are queued behind it, then CUDA events bracket the calls, which the
+    card runs back to back (gaps between launches included).  Valid only
+    if the spin was still running when the last call was queued; else
+    the spin is doubled and the calls queued again."""
+    import torch
+    fn(inputs[0])
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * 2.0e9))   # >= spin_s at <= 2 GHz
+        start.record()
+        for i in range(iters):
+            fn(inputs[i % len(inputs)])
+        end.record()
+        ahead = not start.query()
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+        spin_s *= 2
+    raise AssertionError("the host could not queue the calls ahead of "
+                         "the card")
 
 
 def slab_bytes(tables) -> int:
@@ -361,6 +409,15 @@ def phase_golden(dev):
         f"reproduce {tuple(want.shape)} outputs, packed and unpacked")
 
 
+# batch sizes held bit for bit against the plain version: offline
+# scoring, a ragged batch, the registry's micro-batch, one request
+WIDTH_BATCHES = (4096, 1000, 256, 1)
+# the fused kernels' symbols, as the profiler names them
+LUT_SYMBOLS = {"lut_network_fused": "lut_fused_kernel",
+               "lut_network_fused_pipelined": "lut_fused_pipelined_kernel",
+               "lut_gather": "lut_gather_kernel"}
+
+
 def phase_width(dev, results):
     import torch
     from repro_torch.configs import paper_models as PM
@@ -376,7 +433,8 @@ def phase_width(dev, results):
         for packed in (False, True):
             tables = pack_tables_int4(base) if packed else base
             engines, args = _engines(tables, spec.in_features)
-            for B in (4096, 1000):
+            net = K.FusedNet(args)
+            for B in WIDTH_BATCHES:
                 codes = random_codes(rng, B, spec.in_features, bits0, dev)
                 want = engines["plain"](codes)
                 for name in LUT_KERNELS:
@@ -398,56 +456,86 @@ def phase_width(dev, results):
                     check(err == 0, f"{spec.name} lut_gather layer "
                           f"differs from ref.lut_layer")
                     c = w
-            net = K.FusedNet(args)
+            geo = {B: net.geometry(B, False) for B in WIDTH_BATCHES}
             log(f"[width] {spec.name} packed={packed}: 3 kernels == plain "
-                f"at B=4096 and B=1000 (rows/block: fused "
-                f"{net.rows(False)}, pipelined {net.rows(True)})")
+                f"at B={list(WIDTH_BATCHES)} (fused rows x threads / "
+                f"blocks: " + ", ".join(
+                    f"B={B} {g.rows}x{g.threads}/{g.grid}"
+                    for B, g in geo.items()) +
+                f"; pipelined rows {net.rows(True)})")
+    time_lut(dev, results, rng)
+    # the kernels line: the shape at which the serve phase launches them
+    # (time_lut holds every timed shape to an error of 0)
+    for name in LUT_KERNELS:
+        main = results[f"{name}_int4_b256"]
+        results[name] = dict(main, max_abs_err=max(errs[name],
+                                                   main["max_abs_err"]))
 
-    # timing: HDR-Add2 at B=4096 (offline scoring) and at the registry's
-    # micro-batch of 256, slabs unpacked (uint8/int32) and int4-packed
-    # (as the registry loads them); the kernels line reports B=4096
-    # unpacked
-    spec = PM.hdr_add2()
-    n_in0, widths = spec.in_features, list(spec.widths)
-    dims = [n_in0] + widths
-    base = random_tables(spec, 11, dev)
-    for B in (4096, 256):
-        # together larger than the 50 MB L2 at B=4096
-        inputs = [random_codes(rng, B, spec.in_features, 2, dev)
-                  for _ in range(8)]
-        for packed in (True, False):
-            tables = pack_tables_int4(base) if packed else base
-            engines, args = _engines(tables, spec.in_features)
-            slabs = slab_bytes(tables)
-            ops = B * sum(layer_ops(t) for t in tables)
-            fused_bytes = 4 * B * (n_in0 + widths[-1]) + slabs
-            per_layer_bytes = sum(4 * B * (dims[i] + dims[i + 1])
-                                  for i in range(len(widths))) + slabs
-            plain_ms = time_ms(engines["plain"], inputs, iters=10)
-            for name, nbytes, launches in (
-                    ("lut_network_fused", fused_bytes, 1),
-                    ("lut_network_fused_pipelined", fused_bytes, 1),
-                    ("lut_gather", per_layer_bytes, len(tables))):
-                ms = time_ms(engines[name], inputs)
-                dms = device_ms(engines[name], inputs)
-                bms, by = bound_ms(nbytes, ops)
-                key = name + ("_int4" if packed else "") + \
-                    ("" if B == 4096 else f"_b{B}")
-                results[key] = dict(ms=ms, device_ms=dms, plain_ms=plain_ms,
-                                    bound_ms=bms, max_abs_err=errs[name],
-                                    bound_by=by, bytes=nbytes, ops=ops,
-                                    launches_per_forward=launches,
-                                    batch=B, int4=packed)
-                log(f"[width] time {name} int4={packed}: {ms:.4f} "
-                    f"ms/forward at B={B} ({launches} launch/forward; "
-                    f"device {dms:.4f} ms), plain {plain_ms:.4f} ms, "
-                    f"bound {bms:.5f} ms ({by}: {nbytes} B, {ops} ops)")
-    net = K.FusedNet(args)
-    results["_timing"] = dict(
-        model="HDR-Add2",
-        rows_fused=net.rows(False), rows_pipelined=net.rows(True),
-        smem_fused=net.smem_bytes(net.rows(False), False),
-        smem_pipelined=net.smem_bytes(net.rows(True), True))
+
+# the networks and batches timed: offline scoring and the registry's
+# micro-batch, for the model the serve phase runs and the widest one
+TIMED_NETS = (("", "hdr_add2", 11), ("jsc_xl_add2_", "jsc_xl_add2", 12))
+TIMED_BATCHES = (4096, 256)
+
+
+def time_lut(dev, results, rng):
+    """HDR-Add2 and JSC-XL-Add2 at B=4096 (offline scoring) and at the
+    registry's micro-batch of 256, slabs unpacked (uint8/int32) and
+    int4-packed (as the registry loads them), each kernel first held
+    against the plain version on the timed inputs: CUDA events over
+    back-to-back calls (host time included), the profiler's device clock,
+    and the card's time with the calls queued ahead (``queued_ms``).
+    Keys: ``[jsc_xl_add2_]<kernel>_<u8|int4>_b<B>``."""
+    from repro_torch.configs import paper_models as PM
+    from repro_torch.core.lut_synth import pack_tables_int4
+
+    for prefix, model, seed in TIMED_NETS:
+        spec = getattr(PM, model)()
+        n_in0, widths = spec.in_features, list(spec.widths)
+        bits0 = spec.layer_specs()[0].in_quant.bits
+        dims = [n_in0] + widths
+        base = random_tables(spec, seed, dev)
+        for B in TIMED_BATCHES:
+            # together larger than the 50 MB L2 at B=4096
+            inputs = [random_codes(rng, B, n_in0, bits0, dev)
+                      for _ in range(8)]
+            for packed in (True, False):
+                tables = pack_tables_int4(base) if packed else base
+                engines, args = _engines(tables, n_in0)
+                slabs = slab_bytes(tables)
+                ops = B * sum(layer_ops(t) for t in tables)
+                fused_bytes = 4 * B * (n_in0 + widths[-1]) + slabs
+                per_layer_bytes = sum(4 * B * (dims[i] + dims[i + 1])
+                                      for i in range(len(widths))) + slabs
+                want = engines["plain"](inputs[0])
+                plain_ms = time_ms(engines["plain"], inputs, iters=10)
+                for name, nbytes, launches in (
+                        ("lut_network_fused", fused_bytes, 1),
+                        ("lut_network_fused_pipelined", fused_bytes, 1),
+                        ("lut_gather", per_layer_bytes, len(tables))):
+                    err = max_abs_err(engines[name](inputs[0]), want)
+                    check(err == 0, f"[width] {spec.name} {name} B={B} "
+                          f"int4={packed} differs from its plain version")
+                    ms = time_ms(engines[name], inputs)
+                    dms = device_ms(engines[name], inputs,
+                                    LUT_SYMBOLS[name], launches)
+                    qms = queued_ms(engines[name], inputs)
+                    bms, by = bound_ms(nbytes, ops)
+                    key = (f"{prefix}{name}_{'int4' if packed else 'u8'}"
+                           f"_b{B}")
+                    results[key] = dict(
+                        ms=ms, device_ms=dms, queued_ms=qms,
+                        plain_ms=plain_ms, bound_ms=bms, max_abs_err=err,
+                        bound_by=by, bytes=nbytes, ops=ops,
+                        launches_per_forward=launches, batch=B, int4=packed,
+                        model=spec.name)
+                    dtxt = ("not measured" if dms is None
+                            else f"{dms:.4f} ms")
+                    log(f"[width] time {spec.name} {name} int4={packed}: "
+                        f"{ms:.4f} ms/forward at B={B} ({launches} "
+                        f"launch/forward; device {dtxt}, queued {qms:.4f} "
+                        f"ms), plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
+                        f"({by}: {nbytes} B, {ops} ops)")
 
 
 def phase_serve(dev, results):
@@ -579,29 +667,41 @@ def wkv_bound(r, s0):
     return bms, by, nbytes, flops
 
 
+WKV_CASES = [  # name, shape at (B, S, H, K), dtype, clamp, with_s0
+    ("prefill_bf16", "BSHK", "bfloat16", False, False),
+    ("prefill_f32", "BSHK", "float32", False, False),
+    ("decode_bf16", "B1HK", "bfloat16", False, True),
+    ("ragged_f32", "B77HK", "float32", False, True),
+    ("clamp_bf16", "BSHK", "bfloat16", True, False),
+]
+
+
+def _wkv_cases(B, S, H, K):
+    import torch
+    shapes = {"BSHK": (B, S, H, K), "B1HK": (B, 1, H, K),
+              "B77HK": (B, 77, H, K)}
+    return [(name, shapes[sh], getattr(torch, dt), clamp, s0)
+            for name, sh, dt, clamp, s0 in WKV_CASES]
+
+
 def phase_wkv(dev, results, B=4, S=512, H=40, K=64):
-    """At rwkv6-3b's shapes by default (smaller ones rehearse it)."""
+    """At rwkv6-3b's shapes by default (smaller ones rehearse it): the
+    kernel against the plain version, then timed."""
     import torch
     from repro_torch.kernels.wkv6 import ops
     from repro_torch.models.recurrent import WKV_CHUNK, wkv_chunked_ref
 
-    cases = [  # name, (B, S, H, K), dtype, clamp, with_s0
-        ("prefill_bf16", (B, S, H, K), torch.bfloat16, False, False),
-        ("prefill_f32", (B, S, H, K), torch.float32, False, False),
-        ("decode_bf16", (B, 1, H, K), torch.bfloat16, False, True),
-        ("ragged_f32", (B, 77, H, K), torch.float32, False, True),
-        ("clamp_bf16", (B, S, H, K), torch.bfloat16, True, False),
-    ]
     max_abs = 0.0
-    for i, (name, shape, dtype, clamp, with_s0) in enumerate(cases):
+    for i, (name, shape, dtype, clamp, with_s0) in enumerate(
+            _wkv_cases(B, S, H, K)):
         args = wkv_inputs(dev, *shape, dtype, seed=100 + i, clamp=clamp,
                           with_s0=with_s0)
-        o, s = ops.wkv6(*args)
         want_o, want_s = wkv_chunked_ref(*args, chunk=WKV_CHUNK)
-        torch.cuda.synchronize()
-        finite = bool(torch.isfinite(o).all() and torch.isfinite(s).all())
         want_finite = bool(torch.isfinite(want_o).all()
                            and torch.isfinite(want_s).all())
+        o, s = ops.wkv6(*args)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(o).all() and torch.isfinite(s).all())
         check(finite and want_finite,
               f"[wkv] {name}: non-finite output (kernel {finite}, plain "
               f"{want_finite})")
@@ -613,33 +713,46 @@ def phase_wkv(dev, results, B=4, S=512, H=40, K=64):
             f"{WKV_TOL})")
         check(ro <= WKV_TOL and rs <= WKV_TOL,
               f"[wkv] {name}: kernel differs from its plain version")
-        results[f"wkv6_{name}"] = dict(shape=shape, dtype=str(dtype),
-                                       err_o=eo, err_s=es, rel_o=ro,
-                                       rel_s=rs)
-
-    for name in ("prefill_bf16", "prefill_f32", "decode_bf16"):
-        _, shape, dtype, clamp, with_s0 = next(c for c in cases
-                                               if c[0] == name)
-        args = wkv_inputs(dev, *shape, dtype, seed=7, with_s0=with_s0)
-        ms = time_ms(lambda a: ops.wkv6(*a), [args], iters=20)
-        dms = device_ms(lambda a: ops.wkv6(*a), [args])
-        plain_ms = time_ms(lambda a: wkv_chunked_ref(*a), [args], iters=5,
-                           warm=1)
-        bms, by, nbytes, flops = wkv_bound(args[0], args[5])
-        results[f"wkv6_{name}"].update(ms=ms, device_ms=dms,
-                                       plain_ms=plain_ms, bound_ms=bms,
-                                       bound_by=by, bytes=nbytes,
-                                       flops=flops)
-        log(f"[wkv] time {name} {shape}: kernel {ms:.4f} ms (device "
-            f"{dms:.4f} ms), plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
-            f"({by}: {nbytes} B, {flops} flops), {ms / bms:.1f}x the "
-            f"bound ({dms / bms:.1f}x on the device clock)")
-    # the kernels line reports the LM prefill's call (bf16 r, k, v)
+        results[f"wkv6_{name}"] = dict(err_o=eo, err_s=es, rel_o=ro,
+                                       rel_s=rs, shape=shape,
+                                       dtype=str(dtype))
+    time_wkv(dev, results, B, S, H, K)
     main = results["wkv6_prefill_bf16"]
-    results["wkv6"] = dict(ms=main["ms"], plain_ms=main["plain_ms"],
+    results["wkv6"] = dict(ms=main["ms"], device_ms=main["device_ms"],
+                           plain_ms=main["plain_ms"],
                            bound_ms=main["bound_ms"],
                            bound_by=main["bound_by"], max_abs_err=max_abs,
                            library_ms=None)
+
+
+def time_wkv(dev, results, B=4, S=512, H=40, K=64):
+    """The LM's WKV calls: the B x S prefill (bf16 and float32 r/k/v) and
+    one decode token with a state, by CUDA events, the profiler's device
+    clock and ``queued_ms``, against the plain version and the bound."""
+    from repro_torch.kernels.wkv6 import ops
+    from repro_torch.models.recurrent import wkv_chunked_ref
+
+    for name in ("prefill_bf16", "prefill_f32", "decode_bf16"):
+        _, shape, dtype, clamp, with_s0 = next(
+            c for c in _wkv_cases(B, S, H, K) if c[0] == name)
+        args = wkv_inputs(dev, *shape, dtype, seed=7, with_s0=with_s0)
+        default = lambda a: ops.wkv6(*a)            # noqa: E731
+        ms = time_ms(default, [args], iters=20)
+        dms = device_ms(default, [args], "wkv6_kernel")
+        qms = queued_ms(default, [args])
+        plain_ms = time_ms(lambda a: wkv_chunked_ref(*a), [args], iters=5,
+                           warm=1)
+        bms, by, nbytes, flops = wkv_bound(args[0], args[5])
+        r = results.setdefault(f"wkv6_{name}", {})
+        r.update(ms=ms, device_ms=dms, queued_ms=qms, plain_ms=plain_ms,
+                 bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
+        dtxt = "not measured" if dms is None else f"{dms:.4f} ms"
+        rtxt = "" if dms is None else f" ({dms / bms:.1f}x on the device " \
+            f"clock)"
+        log(f"[wkv] time {name} {shape}: kernel {ms:.4f} ms (device "
+            f"{dtxt}, queued {qms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{bms:.5f} ms ({by}: {nbytes} B, {flops} flops), "
+            f"{ms / bms:.1f}x the bound{rtxt}")
 
 
 def phase_masked_mm(dev, results, batches=(1024, 4096)):
@@ -681,8 +794,10 @@ def phase_masked_mm(dev, results, batches=(1024, 4096)):
         plain_ms = time_ms(lambda x: ref.masked_matmul(x, conn, w, bias),
                            xs, iters=20)
         library_ms = time_ms(lambda x: torch.addmm(bias, x, dense), xs)
-        dms = device_ms(lambda x: ops.masked_matmul(x, conn, w, bias), xs)
-        library_dms = device_ms(lambda x: torch.addmm(bias, x, dense), xs)
+        dms = device_ms(lambda x: ops.masked_matmul(x, conn, w, bias), xs,
+                        "masked_mm_kernel")
+        library_dms = device_ms(lambda x: torch.addmm(bias, x, dense), xs,
+                                per_call=None)
         nbytes = 4 * B * cols + 2 * 4 * n_out * F + 4 * n_out + \
             4 * B * n_out
         flops = 2 * B * n_out * F + B * n_out
@@ -700,7 +815,7 @@ def phase_masked_mm(dev, results, batches=(1024, 4096)):
             f"({dms / bms:.1f}x on the device clock)")
     main = results[f"masked_matmul_b{batches[0]}"]
     results["masked_matmul"] = dict(
-        ms=main["ms"], plain_ms=main["plain_ms"],
+        ms=main["ms"], device_ms=main["device_ms"], plain_ms=main["plain_ms"],
         library_ms=main["library_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], max_abs_err=max_abs)
 
@@ -1003,6 +1118,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"], "launches": counts[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms")})

@@ -6,7 +6,8 @@ Three kernels, in ``csrc/lut_gather.cu``:
 * ``lut_gather`` — one layer, one thread per output (row, neuron);
   replaces ``lut_gather_pallas``.  The ``per_layer`` plan runs it.
 * ``lut_network_fused(pipeline=False)`` — every layer of the network in
-  one launch, one block per tile of batch rows, inter-layer codes in
+  one launch, one block per tile of batch rows (rows chosen per call
+  from the batch: ``fused_geometry``), inter-layer codes in
   shared memory; replaces ``lut_network_fused_pallas`` in grid mode.
 * ``lut_network_fused(pipeline=True)`` — the persistent form: a grid of
   ``min(n_tiles, #SMs)`` blocks, each walking its tiles and prefetching
@@ -27,13 +28,19 @@ over): a block holds int32 codes for ``rows`` batch rows — the input
 codes (one slot, two for the pipelined kernel) plus two buffers for
 hidden layers' outputs, P for even layers and Q for odd ones.  Table
 slabs are not staged: they are read through the read-only path and stay
-in L2.  Rows per block come from this ledger against the 227 KB
-(232,448-byte) per-block limit, never from the caller's batch size.
+in L2, and in L1 as far as the carveout leaves room.  The ledger at
+``MAX_BLOCK_ROWS`` rows (fewer when the 227 KB per-block limit says so)
+is the cap that decides how a network is segmented
+(``ops.plan_segments``).  Within the cap, ``fused_geometry`` picks the
+rows of each launch from the batch at call time: few rows a
+block for a small batch, so it spreads over the card's SMs; more for a
+large one, with about four blocks resident on each SM.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 import os
 from typing import List, Optional, Sequence
 
@@ -44,10 +51,29 @@ from repro_torch.kernels.lut_gather import ref
 
 # H100: most shared memory one block may use (dynamic, opted in above 48 KB)
 SMEM_BUDGET_BYTES = 232_448
-# rows per block when shared memory allows more: 32 rows keep a 256-thread
-# block busy on every layer of the paper's networks while leaving a B=4096
-# batch 128 blocks to spread over the card's 132 SMs
+# the ledger's cap on rows per block: 32 rows, one warp's lanes, the most
+# one neuron's row group may span (the kernels put rows fastest across
+# lanes); also the cap that decides segmentation
 MAX_BLOCK_ROWS = 32
+# threads per block of the fused kernels (at most MAX_FUSED_THREADS: their
+# launch bound, which also holds them to 64 registers a thread).  Grid mode
+# takes 128: on the H100 a rows x threads sweep put 128-thread blocks ahead
+# at B=256 and B=4096; the pipelined kernel keeps 256
+FUSED_THREADS = 128
+PIPELINED_THREADS = 256
+MAX_FUSED_THREADS = 512
+# grid mode: rows per block near B / (BLOCKS_PER_SM_TARGET * #SMs), never
+# so many that that many blocks no longer fit one SM's shared memory, and
+# at least MIN_SHARED_ROWS once the batch gives each SM that many rows
+# (lanes of a neuron share its conn and table reads across rows)
+BLOCKS_PER_SM_TARGET = 4
+MIN_SHARED_ROWS = 2
+# an SM's shared memory at the largest carveout (228 KB), CUDA's
+# reservation per resident block, and the SM's thread and block limits
+SM_SMEM_BYTES = 233_472
+BLOCK_SMEM_RESERVED = 1024
+MAX_THREADS_PER_SM = 2048
+MAX_BLOCKS_PER_SM = 32
 
 ENC_U8, ENC_I32, ENC_INT4, ENC_NONE = 0, 1, 2, -1
 
@@ -70,7 +96,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.lut_desc_size.restype = i
     lib.lut_gather_launch.argtypes = [vp, vp, i, vp, vp, vp] + [i] * 10 + [vp]
     lib.lut_gather_launch.restype = i
-    lib.lut_fused_launch.argtypes = [vp, vp, i, vp] + [i] * 8 + [vp]
+    lib.lut_fused_launch.argtypes = [vp, vp, i, vp] + [i] * 9 + [vp]
     lib.lut_fused_launch.restype = i
     if lib.lut_desc_size() != ctypes.sizeof(_LayerDesc):
         raise RuntimeError("LayerDesc layout differs between "
@@ -264,17 +290,94 @@ def fused_smem_bytes(n_in0: int, widths: Sequence[int], rows: int,
 
 def block_rows(n_in0: int, widths: Sequence[int], pipeline: bool,
                budget: int = SMEM_BUDGET_BYTES) -> int:
-    """Rows per block: as many as the budget holds, up to MAX_BLOCK_ROWS;
-    0 when not even one row fits."""
+    """The ledger's cap on rows per block: as many as the budget holds,
+    up to MAX_BLOCK_ROWS; 0 when not even one row fits."""
     return min(MAX_BLOCK_ROWS,
                budget // smem_bytes_per_row(n_in0, widths, pipeline))
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedGeometry:
+    """One fused launch: ``rows`` batch rows and ``threads`` threads per
+    block, ``grid`` blocks, ``smem_bytes`` of dynamic shared memory a
+    block (the ledger at ``rows``), ``blocks_per_sm`` blocks meant to be
+    resident on each SM, and the shared-memory ``carveout`` (percent of
+    the SM's 228 KB) they need; the rest of the SM's 256 KB is L1."""
+    rows: int
+    threads: int
+    grid: int
+    smem_bytes: int
+    blocks_per_sm: int
+    carveout: int
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(1, int(x)).bit_length() - 1)
+
+
+def _pow2_nearest(x: float) -> int:
+    """The power of two nearest to ``x`` on a log scale, at least 1."""
+    return 1 << max(0, round(math.log2(x))) if x > 0 else 1
+
+
+def fused_geometry(B: int, n_sms: int, n_in0: int, widths: Sequence[int],
+                   pipeline: bool, max_rows: Optional[int] = None,
+                   rows: Optional[int] = None,
+                   budget: int = SMEM_BUDGET_BYTES) -> FusedGeometry:
+    """The launch geometry of a fused kernel for a batch of ``B`` rows on
+    a card of ``n_sms`` SMs — a pure function of its arguments.
+
+    The cap is the ledger's (``block_rows``), lowered to ``max_rows``
+    when given (a plan's ``block_b``).  Grid mode takes FUSED_THREADS
+    threads and the power of two of rows nearest B / (4 * #SMs), about
+    four blocks per SM, but at least two once the batch gives each SM two
+    rows, and never more than the cap or than lets four blocks share an
+    SM's shared memory: HDR-Add2 runs 2 rows a block on 128 blocks at
+    B=256, 8 rows on 512 blocks at B=4096, and one block at B=1.  The
+    pipelined kernel keeps the cap and PIPELINED_THREADS (its blocks walk
+    the tiles).  ``rows`` overrides the choice of rows (within the
+    budget)."""
+    cap = block_rows(n_in0, widths, pipeline, budget)
+    if max_rows is not None:
+        cap = min(cap, int(max_rows))
+    threads = PIPELINED_THREADS if pipeline else FUSED_THREADS
+    if rows is None:
+        if cap < 1:
+            raise ValueError(
+                f"not one row fits a block's shared memory "
+                f"({fused_smem_bytes(n_in0, widths, 1, pipeline)} > "
+                f"{budget} bytes); split the network (ops.plan_segments)")
+        if pipeline:
+            rows = cap
+        else:
+            per_row = smem_bytes_per_row(n_in0, widths, False)
+            fit = (SM_SMEM_BYTES // BLOCKS_PER_SM_TARGET
+                   - BLOCK_SMEM_RESERVED) // per_row
+            want = max(_pow2_nearest(B / (BLOCKS_PER_SM_TARGET * n_sms)),
+                       min(MIN_SHARED_ROWS, _pow2_nearest(B / n_sms)))
+            rows = max(1, min(cap, _pow2_floor(fit), want))
+    rows = int(rows)
+    smem = fused_smem_bytes(n_in0, widths, rows, pipeline)
+    if rows < 1 or smem > budget:
+        raise ValueError(f"{rows} rows per block need {smem} bytes of "
+                         f"shared memory (limit {budget}); split the "
+                         f"network (ops.plan_segments)")
+    n_tiles = -(-int(B) // rows)
+    grid = min(n_tiles, n_sms) if pipeline else n_tiles
+    per_block = smem + BLOCK_SMEM_RESERVED
+    resident = max(1, min(MAX_THREADS_PER_SM // threads, MAX_BLOCKS_PER_SM,
+                          SM_SMEM_BYTES // per_block, -(-grid // n_sms)))
+    carveout = min(100, -(-100 * resident * per_block // SM_SMEM_BYTES))
+    return FusedGeometry(rows=rows, threads=threads, grid=grid,
+                         smem_bytes=smem, blocks_per_sm=resident,
+                         carveout=carveout)
 
 
 class FusedNet:
     """A chain of layers ready for the fused kernels: the checked layer
     arguments and, on a CUDA device, the per-layer descriptor array in
     device memory (it holds the slabs' addresses, so the layers are kept
-    alive here)."""
+    alive here) and the card's SM count."""
 
     def __init__(self, layers: Sequence[LayerArgs]):
         self.layers: List[LayerArgs] = list(layers)
@@ -288,50 +391,46 @@ class FusedNet:
         self.widths = [a.n_out for a in self.layers]
         self.wp, self.wq = buffer_widths(self.widths)
         self.desc = None
+        self.n_sms = 0
         if self.device.type == "cuda":
             arr = (_LayerDesc * len(self.layers))(
                 *[a.desc() for a in self.layers])
             self.desc = torch.frombuffer(bytearray(bytes(arr)),
                                          dtype=torch.uint8).to(self.device)
+            self.n_sms = torch.cuda.get_device_properties(
+                self.device).multi_processor_count
 
     def rows(self, pipeline: bool, budget: int = SMEM_BUDGET_BYTES) -> int:
+        """The ledger's cap on rows per block."""
         return block_rows(self.n_in0, self.widths, pipeline, budget)
 
-    def smem_bytes(self, rows: int, pipeline: bool) -> int:
-        return fused_smem_bytes(self.n_in0, self.widths, rows, pipeline)
-
-
-def _sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
+    def geometry(self, B: int, pipeline: bool, **kw) -> FusedGeometry:
+        """``fused_geometry`` for a batch of ``B`` rows on this card."""
+        return fused_geometry(B, self.n_sms, self.n_in0, self.widths,
+                              pipeline, **kw)
 
 
 def lut_network_fused(codes: torch.Tensor, net: FusedNet,
-                      rows: Optional[int] = None,
-                      pipeline: bool = False) -> torch.Tensor:
+                      rows: Optional[int] = None, pipeline: bool = False,
+                      max_rows: Optional[int] = None) -> torch.Tensor:
     """codes (B, n_in0) int32 -> (B, n_out_last) int32 through every
-    layer of ``net`` in one launch.  ``rows`` per block defaults to what
-    the shared-memory ledger allows."""
+    layer of ``net`` in one launch.  The geometry comes from
+    ``fused_geometry`` for this batch, within ``max_rows`` and the
+    ledger; ``rows`` forces the rows per block."""
     if _device_of(codes, net.device).type == "cpu":
         return ref.lut_network(codes, [a.plain() for a in net.layers])
     _check_codes(codes, net.n_in0)
-    rows = net.rows(pipeline) if rows is None else int(rows)
-    smem = net.smem_bytes(rows, pipeline)
-    if rows < 1 or smem > SMEM_BUDGET_BYTES:
-        raise ValueError(f"{rows} rows per block need {smem} bytes of "
-                         f"shared memory (limit {SMEM_BUDGET_BYTES}); "
-                         f"split the network (ops.plan_segments)")
-    lib = build()
     B = codes.shape[0]
+    g = net.geometry(B, pipeline, max_rows=max_rows, rows=rows)
+    lib = build()
     out = torch.empty((B, net.widths[-1]), dtype=torch.int32,
                       device=net.device)
-    n_tiles = -(-B // rows)
-    grid = min(n_tiles, _sm_count(net.device)) if pipeline else n_tiles
-    vec16 = int(codes.data_ptr() % 16 == 0 and net.n_in0 % 4 == 0)
     with torch.cuda.device(net.device):
         rc = lib.lut_fused_launch(
             codes.data_ptr(), out.data_ptr(), B, net.desc.data_ptr(),
-            len(net.layers), rows, net.wp, net.wq, smem, int(pipeline),
-            grid, vec16, stream(net.device))
+            len(net.layers), g.rows, g.threads, net.wp, net.wq,
+            g.smem_bytes, int(pipeline), g.grid, g.carveout,
+            stream(net.device))
     name = ("lut_network_fused_pipelined" if pipeline
             else "lut_network_fused")
     check_rc(rc, name)

@@ -16,8 +16,9 @@ reference package bit for bit (tests/test_torch_lut.py; on the card,
 chip_smoke.py).  On CPU tensors every path runs the kernels' plain
 versions.
 
-Not yet ported: ``tune_block_b`` (rows per block come from the
-shared-memory ledger instead) and ``lut_network_fused_sharded``.
+Not yet ported: ``tune_block_b`` (each launch picks its rows per block
+from the batch, within the shared-memory ledger's cap:
+``lut_gather.fused_geometry``) and ``lut_network_fused_sharded``.
 """
 from __future__ import annotations
 
@@ -76,9 +77,10 @@ def lut_network(tables: List, codes: torch.Tensor) -> torch.Tensor:
 def lut_network_fused(tables: List, codes: torch.Tensor,
                       block_b: Optional[int] = None,
                       pipeline: bool = False) -> torch.Tensor:
-    """Fused path: the whole network in one launch.  ``block_b`` is the
-    rows per block (default: what the shared-memory ledger allows);
-    ``pipeline=True`` selects the persistent double-buffered kernel."""
+    """Fused path: the whole network in one launch.  ``block_b`` forces
+    the rows per block (default: chosen from the batch within the
+    shared-memory ledger's cap); ``pipeline=True`` selects the
+    persistent double-buffered kernel."""
     net = K.FusedNet(_layer_args(tables, codes.shape[1]))
     return K.lut_network_fused(codes, net, rows=block_b, pipeline=pipeline)
 
@@ -102,8 +104,10 @@ class SegmentPlan:
     passing through device memory) or ``"per_layer"`` (some single layer
     does not fit a block's shared memory even at one row).  ``bounds``
     are half-open ``(start, end)`` layer ranges; ``block_b`` and
-    ``smem_bytes`` are each segment's rows per block and the ledger at
-    those rows; ``cut_widths`` are the code widths crossing each cut."""
+    ``smem_bytes`` are each segment's cap on rows per block and the
+    ledger at the cap (each launch chooses its rows from the batch, up to
+    the cap: ``lut_gather.fused_geometry``); ``cut_widths`` are the code
+    widths crossing each cut."""
     mode: str
     bounds: Tuple[Tuple[int, int], ...]
     block_b: Tuple[int, ...]
@@ -124,13 +128,14 @@ class SegmentPlan:
             return (f"plan: per-layer (a single layer exceeds the "
                     f"{self.budget}-byte shared-memory budget)")
         segs = " ".join(
-            f"[L{s}..L{e - 1} rows={bb} smem={v}B]"
+            f"[L{s}..L{e - 1} rows<={bb} smem<={v}B]"
             for (s, e), bb, v in zip(self.bounds, self.block_b,
                                      self.smem_bytes))
         extra = (f" cuts={list(self.cut_widths)}"
                  if self.mode == "segmented" else "")
         return (f"plan: {self.mode} x{self.n_segments} pipeline="
-                f"{self.pipeline}{extra} {segs}")
+                f"{self.pipeline}{extra} {segs}; rows per block chosen "
+                f"per batch up to the cap")
 
 
 def _per_layer_plan(n_in0: int, budget: int) -> SegmentPlan:
@@ -218,7 +223,9 @@ def plan_segments(tables: List, block_b: Optional[int] = None,
 
 def _compile_plan(tables: List, plan: SegmentPlan) -> Callable:
     """Check the tables once (conn ranges included), build each
-    segment's descriptor array, and return ``run(codes)``."""
+    segment's descriptor array, and return ``run(codes)``.  Each
+    segment's ``block_b`` is a cap: every call picks its rows per block
+    from its batch (``lut_gather.fused_geometry``)."""
     args = _layer_args(tables, plan.n_in0, check_conn=True)
     if plan.mode == "per_layer":
         def run(codes):
@@ -231,7 +238,7 @@ def _compile_plan(tables: List, plan: SegmentPlan) -> Callable:
 
     def run(codes):
         for net, bb in segs:
-            codes = K.lut_network_fused(codes, net, rows=bb,
+            codes = K.lut_network_fused(codes, net, max_rows=bb,
                                         pipeline=plan.pipeline)
         return codes
     return run
@@ -259,9 +266,10 @@ def make_network_fn(tables, fused: Optional[bool] = None,
     tables are moved there).  ``fused=None`` lets ``plan_segments``
     choose; ``fused=True`` / ``False`` force the whole-network fused /
     per-layer engines.  ``pipeline=True`` selects the persistent
-    double-buffered fused kernel.  ``block_b`` fixes the rows per block
-    (default: what the ledger allows).  The plan rides on the callable
-    as ``fn.execution_plan``.
+    double-buffered fused kernel.  ``block_b`` caps the rows per block
+    (default: the ledger's cap); each call picks its rows from its batch
+    within the cap.  The plan rides on the callable as
+    ``fn.execution_plan``.
 
     ``tables`` may be a loaded ``repro_torch.artifact`` bundle: its
     manifest's input width feeds the planner.  Its ``execution_plan``

@@ -1,9 +1,15 @@
 """CUDA WKV6 kernel for Hopper and its wrapper (port of the Pallas kernel
 ``repro.kernels.wkv6.wkv6.wkv6_pallas``).
 
-The kernel, in ``csrc/wkv6.cu``, runs the recurrence token by token:
-one block per (batch, head), one thread per state column holding that
-column in registers.  Unlike the reference's chunked form it never
+The kernel, in ``csrc/wkv6.cu``, runs the recurrence token by token in
+float32: each lane holds a tile of rows x columns of the state in
+registers (the source picks the tile from the head size and the call's
+length), the lanes sharing columns join their partial outputs with
+shuffles, a block owns a group of columns of one (batch, head), and the
+inputs stream through a ring of shared-memory chunks of 16 tokens
+(``cp.async``, one barrier per chunk); a call of at most two tokens (a
+decode step) reads its tokens straight from device memory, with a tile
+of its own.  Unlike the reference's chunked form it never
 exponentiates a cumulative log-decay, so it stays finite at the decay
 clamp for any sequence length, and it needs no padding.  See the source
 for what bounds it.
@@ -26,7 +32,7 @@ from repro_torch.kernels.wkv6 import ref
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "wkv6.cu")
-# head sizes the kernel is instantiated for (its state column lives in
+# head sizes the kernel is instantiated for (its state rows live in
 # registers, so K is a compile-time constant): rwkv6's 64, the smoke
 # config's 16, and 32, each run by the gpu tests
 HEAD_SIZES = (16, 32, 64)
@@ -47,6 +53,11 @@ launch_counts = LIBRARY.counts
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it that starts on a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -81,9 +92,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if s0 is not None and tuple(s0.shape) != (B, H, K, K):
         raise ValueError(f"s0 of shape {tuple(s0.shape)}, want "
                          f"{(B, H, K, K)}")
-    r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
-    logw, u = _f32(logw), _f32(u)
-    s0 = _f32(s0) if s0 is not None else None
+    # the kernel copies r, k, v, logw and reads s0 16 bytes at a time
+    r, k, v, logw = (_aligned(t.contiguous()) for t in (r, k, v, _f32(logw)))
+    u = _f32(u)
+    s0 = _aligned(_f32(s0)) if s0 is not None else None
     o = torch.empty((B, S, H, K), dtype=torch.float32, device=dev)
     s_end = torch.empty((B, H, K, K), dtype=torch.float32, device=dev)
     lib = build()

@@ -1,6 +1,6 @@
-"""The port stands alone: importing every module of ``repro_torch``, and
-the GPU check ``chip_smoke.py``, loads neither JAX nor anything of the
-JAX package ``repro``."""
+"""The port stands alone: importing every module of ``repro_torch``, the
+GPU check ``chip_smoke.py`` and its A/B timer ``kernel_ab.py`` loads
+neither JAX nor anything of the JAX package ``repro``."""
 import os
 import subprocess
 import sys
@@ -16,7 +16,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 sys.path.insert(0, sys.argv[1])
-import chip_smoke
+import chip_smoke, kernel_ab
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro")
              or m.startswith(("jax.", "jaxlib.", "repro.")))

@@ -161,3 +161,156 @@ def test_masked_matmul_kernel_matches_plain(cuda, B, n_in, n_out, F,
     y = mm.masked_matmul(x, bad, w, b)
     assert torch.isnan(y[:, :2]).all()
     torch.testing.assert_close(y[:, 2:], got[:, 2:], rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# kernel 1's instantiations, its generic path, and kernels 2-3 beside it
+# ---------------------------------------------------------------------------
+
+# (A, F) of the paper's models, each a compiled instantiation of the fused
+# kernels' per-layer code, and two that take its generic path
+AF_INSTANTIATED = [(1, 6), (2, 4), (1, 3), (1, 2), (2, 2), (2, 1), (1, 4)]
+AF_GENERIC = [(3, 2), (1, 5)]
+FUSED_BATCHES = (1, 2, 255, 256, 257, 4096)
+
+
+def _nibble_pack(t):
+    """(..., K) codes <= 15 -> (..., K/2) uint8, low nibble first."""
+    t = t.to(torch.uint8)
+    return (t[..., 0::2] | (t[..., 1::2] << 4)).contiguous()
+
+
+def _random_net(A, F, enc, adder, device, seed, n_in0=40,
+                widths=(64, 48, 10), in_bits=(2, 2, 2)):
+    """Layer arguments of a random network: every layer (A, F), 2-bit
+    output codes (3-bit sub-codes under the adder), slabs in ``enc``
+    (uint8 / int32 / int4-packed)."""
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    rng = np.random.default_rng(seed)
+    layers, n_in = [], n_in0
+    for n_out, ib in zip(widths, in_bits):
+        Kw = 2 ** (ib * F)
+        sub_bits = 3 if adder else 2
+        conn = torch.from_numpy(rng.integers(0, n_in, (n_out, A, F)).astype(
+            np.int32)).to(device)
+        sub = torch.from_numpy(rng.integers(0, 2 ** sub_bits, (n_out, A, Kw)))
+        add = torch.from_numpy(rng.integers(0, 4, (n_out, 2 ** (A * sub_bits))
+                                            if adder else (n_out, 0)))
+        dt = torch.int32 if enc == "int32" else torch.uint8
+        sub, add = sub.to(dt), add.to(dt)
+        if enc == "int4":
+            sub = _nibble_pack(sub)
+            add = _nibble_pack(add) if adder else add
+        layers.append(K.layer_args(
+            conn, sub.to(device), add.to(device), ib, sub_bits,
+            enc == "int4", enc == "int4" and adder, n_in=n_in,
+            check_conn=True))
+        n_in = n_out
+    return layers
+
+
+def _all_kernels_match(layers, codes):
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    from repro_torch.kernels.lut_gather import ref
+    net = K.FusedNet(layers)
+    want = ref.lut_network(codes, [a.plain() for a in layers])
+    c = codes
+    for a in layers:
+        c = K.lut_gather(c, a)
+    for name, got in (("fused", K.lut_network_fused(codes, net)),
+                      ("pipelined", K.lut_network_fused(codes, net,
+                                                        pipeline=True)),
+                      ("per_layer", c)):
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("adder", [True, False])
+@pytest.mark.parametrize("enc", ["uint8", "int32", "int4"])
+@pytest.mark.parametrize("A,F", AF_INSTANTIATED + AF_GENERIC)
+def test_fused_instantiations_match_plain(cuda, A, F, enc, adder):
+    """Every (A, F) instantiation of the fused kernels and the generic
+    path, each slab encoding, adder on and off: kernels 1-3 equal the
+    plain version bit for bit at batches around the geometry's steps."""
+    layers = _random_net(A, F, enc, adder, cuda, seed=A * 10 + F)
+    rng = np.random.default_rng(F)
+    for B in FUSED_BATCHES:
+        codes = torch.from_numpy(rng.integers(0, 4, (B, 40)).astype(
+            np.int32)).to(cuda)
+        _all_kernels_match(layers, codes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A,F,in_bits", [(2, 2, 5), (1, 3, 4), (3, 2, 5)])
+def test_fused_layer0_wild_codes_match_plain(cuda, A, F, in_bits):
+    """Request codes anywhere in int32, negative included, through a first
+    layer whose table rows hold 2^(in_bits*F) >= 1024 entries (as
+    JSC-XL-Add2's hidden layers): masked to the row after packing,
+    exactly as the plain version does."""
+    layers = _random_net(A, F, "uint8", A > 1, cuda, seed=in_bits,
+                         in_bits=(in_bits, 2, 2))
+    rng = np.random.default_rng(in_bits)
+    for B in (1, 256, 4096):
+        codes = torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, (B, 40), dtype=np.int64).astype(
+                np.int32)).to(cuda)
+        _all_kernels_match(layers, codes)
+
+
+@pytest.mark.gpu
+def test_fused_geometry_overrides_match_plain(cuda):
+    """Any rows per block within the cap gives the same codes."""
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    from repro_torch.kernels.lut_gather import ref
+    layers = _random_net(2, 4, "int4", True, cuda, seed=5)
+    net = K.FusedNet(layers)
+    codes = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 4, (1000, 40)).astype(np.int32)).to(cuda)
+    want = ref.lut_network(codes, [a.plain() for a in layers])
+    for rows in (1, 3, 8, 30, 32):
+        for pipeline in (False, True):
+            got = K.lut_network_fused(codes, net, rows=rows,
+                                      pipeline=pipeline)
+            assert torch.equal(got, want), (rows, pipeline)
+
+
+# ---------------------------------------------------------------------------
+# kernel 5 across head sizes, lengths, grids and column splits
+# ---------------------------------------------------------------------------
+
+def _wkv_check(cuda, B, S, H, K, dtype, with_s0, clamp, seed):
+    from repro_torch.kernels.wkv6 import ops
+    r, k, v, logw, u, s0 = _wkv_inputs(B, S, H, K, dtype, cuda, seed=seed,
+                                       clamp=clamp)
+    s0 = s0 if with_s0 else None
+    want_o, want_s = ops.wkv6_reference(r, k, v, logw, u, s0)
+    o, s = ops.wkv6(r, k, v, logw, u, s0)
+    torch.cuda.synchronize()
+    for got, want in ((o, want_o), (s, want_s)):
+        assert torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        assert err <= 2e-4 * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 2, 3, 31, 32, 33, 77, 512])
+@pytest.mark.parametrize("K", [16, 32, 64])
+def test_wkv6_kernel_lengths_and_grids(cuda, K, S, dtype):
+    """Lengths on both sides of the unstaged decode path (S <= 2, its
+    own tile) and around the 16-token staging chunk, B*H far below (2)
+    and far above (640) the card's 132 SMs, with and without a state:
+    within 2e-4 of the output scale."""
+    _wkv_check(cuda, 1, S, 2, K, dtype, with_s0=True, clamp=False, seed=S)
+    _wkv_check(cuda, 16, S, 40, K, dtype, with_s0=False, clamp=False,
+               seed=S + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [16, 32, 64])
+def test_wkv6_kernel_finite_at_the_clamp(cuda, K, dtype):
+    """Every decay at the clamp over 512 tokens: finite and within 2e-4."""
+    _wkv_check(cuda, 2, 512, 3, K, dtype, with_s0=True, clamp=True, seed=K)
+    _wkv_check(cuda, 2, 512, 3, K, dtype, with_s0=False, clamp=True,
+               seed=K + 1)

@@ -304,6 +304,85 @@ def test_plan_ledger_properties():
     assert plan.smem_bytes == (32 * 4 * (784 + 256 + 100),)
 
 
+# every paper model of configs/paper_models.py (the CIFAR rows reuse the
+# HDR topologies on 3072 inputs)
+PAPER_MODELS = ("hdr", "hdr_add2", "hdr_5l", "jsc_xl", "jsc_xl_add2",
+                "jsc_m_lite", "jsc_m_lite_add2", "jsc_2l", "cifar_hdr",
+                "cifar_hdr_add2")
+H100_SMS = 132
+
+
+def _paper_shape(name):
+    from repro_torch.configs import paper_models as PM
+    spec = getattr(PM, name)()
+    return spec, spec.in_features, list(spec.widths)
+
+
+@pytest.mark.parametrize("name", PAPER_MODELS)
+def test_paper_models_plan_one_fused_segment(name):
+    """The ledger still plans every paper model to one fused segment at
+    the card's budget, its cap MAX_BLOCK_ROWS rows, in both modes."""
+    spec, n_in, _ = _paper_shape(name)
+    tables = _hdr_add2_shaped(spec)
+    for pipeline in (False, True):
+        plan = tops.plan_segments(tables, n_in0=n_in, pipeline=pipeline)
+        assert (plan.mode, plan.n_segments) == ("fused", 1)
+        assert plan.block_b[0] == min(TK.MAX_BLOCK_ROWS, TK.block_rows(
+            n_in, [t.conn.shape[0] for t in tables], pipeline))
+        assert "chosen per batch up to the cap" in plan.describe()
+
+
+@pytest.mark.parametrize("name", PAPER_MODELS)
+def test_fused_geometry_fills_the_card(name):
+    """The registry's 256-row micro-batch spreads over >= 128 blocks of a
+    132-SM card; one row makes one block; a 4096-row batch makes two or
+    more blocks per SM, and four of them fit an SM's shared memory
+    together."""
+    _, n_in, widths = _paper_shape(name)
+    g = TK.fused_geometry(256, H100_SMS, n_in, widths, False)
+    assert g.grid >= 128
+    g1 = TK.fused_geometry(1, H100_SMS, n_in, widths, False)
+    assert (g1.rows, g1.grid) == (1, 1)
+    g = TK.fused_geometry(4096, H100_SMS, n_in, widths, False)
+    assert g.grid >= 2 * H100_SMS
+    assert g.blocks_per_sm >= 4
+    assert g.blocks_per_sm * (g.smem_bytes + TK.BLOCK_SMEM_RESERVED) \
+        <= TK.SM_SMEM_BYTES
+
+
+@pytest.mark.parametrize("name", PAPER_MODELS)
+def test_fused_geometry_stays_within_the_ledger(name):
+    """At any batch, in both modes, with and without a plan's cap: rows
+    within the ledger's cap, the ledger's bytes at those rows within the
+    227 KB budget, every row covered, the carveout a percentage."""
+    _, n_in, widths = _paper_shape(name)
+    for pipeline in (False, True):
+        cap = TK.block_rows(n_in, widths, pipeline)
+        for max_rows in (None, 5):
+            for B in (1, 2, 255, 256, 257, 1000, 4096, 65536):
+                g = TK.fused_geometry(B, H100_SMS, n_in, widths, pipeline,
+                                      max_rows=max_rows)
+                assert 1 <= g.rows <= min(cap, max_rows or cap)
+                assert g.rows <= TK.MAX_BLOCK_ROWS
+                assert g.smem_bytes == TK.fused_smem_bytes(
+                    n_in, widths, g.rows, pipeline) <= TK.SMEM_BUDGET_BYTES
+                tiles = -(-B // g.rows)
+                assert g.grid == (min(tiles, H100_SMS) if pipeline
+                                  else tiles)
+                assert 0 < g.carveout <= 100
+                assert g.rows <= g.threads <= TK.MAX_FUSED_THREADS
+
+
+def test_fused_geometry_refuses_what_does_not_fit():
+    with pytest.raises(ValueError):
+        TK.fused_geometry(64, H100_SMS, 784, [256, 10], False, rows=64)
+    with pytest.raises(ValueError):
+        TK.fused_geometry(64, H100_SMS, 784, [256, 10], False, rows=0)
+    with pytest.raises(ValueError):
+        TK.fused_geometry(64, H100_SMS, 784, [256, 10], False,
+                          budget=100)
+
+
 def test_make_network_fn_needs_a_card_unless_told(monkeypatch):
     _, _, u8, _ = network("golden")
     tt = TLS.tables_from_numpy(u8, "cpu")
