@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — compile the three CUDA kernel libraries (LUT, WKV6, masked
              matmul) from the checkout's sources, one nvcc each, all
-             started together; print the build seconds and nvcc's
-             ``-Xptxas -v`` report.
+             started together; print the build seconds, nvcc's
+             ``-Xptxas -v`` report and each kernel's registers and spill
+             bytes.
 3. golden  — load ``tests/golden/`` (packed and unpacked): every kernel
              reproduces ``golden_io.npz["outputs"]`` exactly and the
              recomputed artifact id matches.
@@ -20,7 +21,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              drawn from a numpy seed: each kernel equals its plain
              PyTorch version on the card bit for bit, at B=4096, a
              ragged B=1000, the registry's B=256 and B=1, slabs packed
-             and unpacked; both timed at B=4096 and B=256 with CUDA
+             and unpacked, printing the geometry each kernel picks at each
+             batch (the fused kernel's rows x threads / blocks, the
+             pipelined one's and the tiles a block walks, the per-layer
+             one's for each layer); timed at B=4096 and B=256 with CUDA
              events, the profiler's device clock and with the calls
              queued ahead of the card (``queued_ms``), against the plain
              version and the bytes bound.
@@ -29,7 +33,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              hot-swap to a second seed mid-stream: 0 failed, 0 dropped,
              every answer equal to the plain forward of the version that
              answered), then the same artifact through the pipelined and
-             per-layer plans of ``make_network_fn``.  Launch counts are
+             per-layer plans of ``make_network_fn`` (the per-layer one a
+             chain of kernel-3 launches from one host call).  Launch counts are
              zeroed just before and read just after; every kernel must
              have launched.
 6. wkv     — the WKV6 kernel against its plain version
@@ -223,7 +228,10 @@ def time_ms(fn, inputs, iters: int = 40, warm: int = 3) -> float:
 def profile_kernels(fn):
     """Run ``fn`` once under ``torch.profiler`` -> (host wall ms, {kernel
     name: (device ms, launches)}): the card's own clock for each kernel,
-    so host time between launches is not counted."""
+    so host time between launches is not counted.  A kernel's ms is the
+    length of the union of its launches' intervals: launches that
+    overlap (a programmatic dependent launch starts before the launch
+    it waits on ends) count once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -233,11 +241,18 @@ def profile_kernels(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    per = {}
+    spans = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, n = per.get(e.name, (0.0, 0))
-            per[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+            spans.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    per = {}
+    for name, iv in spans.items():
+        us, reach = 0.0, float("-inf")
+        for a, b in sorted(iv):
+            us += max(0.0, b - max(a, reach))
+            reach = max(reach, b)
+        per[name] = (us / 1e3, len(iv))
     return wall, per
 
 
@@ -355,24 +370,58 @@ def phase_build():
             f"{lib.info['path']}")
         for line in str(lib.info["log"]).splitlines():
             log(f"[build] {line}")
+        regs = ptxas_registers(str(lib.info["log"]))
+        log(f"[build] {lib.name} registers (spill stores/loads bytes): "
+            + ", ".join(f"{k} {r} ({st}/{ld})"
+                        for k, (r, st, ld) in regs.items()))
         out[lib.name] = {"seconds": lib.info["seconds"],
-                         "ptxas": lib.info["log"]}
+                         "ptxas": lib.info["log"], "registers": regs}
     return out
+
+
+def ptxas_registers(log: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from
+    nvcc's ``-Xptxas -v`` report, for each entry function (kernel),
+    named by its unmangled identifier."""
+    import re
+    out, fn, props, props_of = {}, None, {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props_of = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            props[props_of] = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            out[fn] = int(m.group(1))
+            fn = None
+
+    def name(mangled):
+        m = re.match(r"_Z(\d+)(\w+)", mangled)
+        return m.group(2)[:int(m.group(1))] if m else mangled
+
+    return {name(k): (r, *props.get(k, (0, 0))) for k, r in out.items()}
 
 
 def _engines(tables, n_in0):
     """The three kernels as whole-network functions: fused grid, fused
-    pipelined, per-layer chain — and the plain version."""
+    pipelined, and the per-layer chain as the ``per_layer`` plan runs it
+    (``make_network_fn(fused=False)``: kernel 3 once a layer) — and the
+    plain version."""
     from repro_torch.kernels.lut_gather import lut_gather as K
     from repro_torch.kernels.lut_gather import ops, ref
     args = ops._layer_args(tables, n_in0, check_conn=True)
     net = K.FusedNet(args)
-
-    def per_layer(c):
-        for a in args:
-            c = K.lut_gather(c, a)
-        return c
-
+    per_layer = ops.make_network_fn(tables, n_in0=n_in0, fused=False,
+                                    device=args[0].conn.device)
     return {
         "lut_network_fused": lambda c: K.lut_network_fused(c, net),
         "lut_network_fused_pipelined":
@@ -456,13 +505,10 @@ def phase_width(dev, results):
                     check(err == 0, f"{spec.name} lut_gather layer "
                           f"differs from ref.lut_layer")
                     c = w
-            geo = {B: net.geometry(B, False) for B in WIDTH_BATCHES}
             log(f"[width] {spec.name} packed={packed}: 3 kernels == plain "
-                f"at B={list(WIDTH_BATCHES)} (fused rows x threads / "
-                f"blocks: " + ", ".join(
-                    f"B={B} {g.rows}x{g.threads}/{g.grid}"
-                    for B, g in geo.items()) +
-                f"; pipelined rows {net.rows(True)})")
+                f"at B={list(WIDTH_BATCHES)}")
+        for line in geometry_lines(net):
+            log(f"[width] {spec.name} {line}")
     time_lut(dev, results, rng)
     # the kernels line: the shape at which the serve phase launches them
     # (time_lut holds every timed shape to an error of 0)
@@ -470,6 +516,25 @@ def phase_width(dev, results):
         main = results[f"{name}_int4_b256"]
         results[name] = dict(main, max_abs_err=max(errs[name],
                                                    main["max_abs_err"]))
+
+
+def geometry_lines(net, batches=WIDTH_BATCHES):
+    """What each LUT kernel launches at each batch: kernel 1 rows x
+    threads / blocks; kernel 2 rows x threads / blocks x tiles a block;
+    kernel 3, per layer, rows x threads x neurons / row tiles x neuron
+    tiles, with "u" where the codes are read unstaged."""
+    out = []
+    for B in batches:
+        g1, g2 = net.geometry(B, False), net.geometry(B, True)
+        g3 = net.layer_geometries(B)
+        out.append(
+            f"B={B}: fused {g1.rows}x{g1.threads}/{g1.grid}; pipelined "
+            f"{g2.rows}x{g2.threads}/{g2.grid}x{g2.tiles} (cap "
+            f"{net.rows(True)} rows); per-layer " + " ".join(
+                f"{g.rows}x{g.threads}x{g.ntile}/{g.row_tiles}x"
+                f"{g.neuron_tiles}{'' if g.smem_bytes else 'u'}"
+                for g in g3))
+    return out
 
 
 # the networks and batches timed: offline scoring and the registry's

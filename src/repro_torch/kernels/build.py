@@ -95,9 +95,11 @@ class KernelLibrary:
             self._lib = lib
             return lib
 
-    def count(self, kernel: str) -> None:
+    def count(self, kernel: str, n: int = 1) -> None:
+        """Add ``n`` launches of ``kernel`` (a wrapper that launches it
+        ``n`` times from one call)."""
         with self._count_lock:
-            self.launches[kernel] += 1
+            self.launches[kernel] += n
 
     def reset_counts(self) -> None:
         with self._count_lock:

@@ -19,29 +19,29 @@
 // TPU kernel's routing matmul is not ported, because a TF32 product would
 // corrupt table addresses.
 //
-// What the fused kernels are up against is latency: an output code is a
-// chain of dependent reads (conn -> codes -> sub-table -> adder table),
-// so the design is about keeping many chains in flight and making each
-// read cheap:
-//   * geometry from the batch: the wrapper picks the rows per block for
-//     each call (lut_gather.py: fused_geometry), so HDR-Add2's 256-row
-//     micro-batch runs on 128 blocks of 2 rows, not 8 blocks of 32, and a
-//     4096-row batch on 512 blocks of 8 rows, four resident on each SM,
-//     128 threads a block (the geometries a sweep on the H100 put first);
+// What all three are up against is latency: an output code is a chain of
+// dependent reads (conn -> codes -> sub-table -> adder table), so the
+// design is about keeping many chains in flight and making each read
+// cheap:
+//   * geometry from the batch: the wrapper picks rows (and, for kernel 3,
+//     neurons) per block for each call (lut_gather.py: fused_geometry,
+//     layer_geometry), so HDR-Add2's 256-row micro-batch spreads over
+//     ~128 blocks, not a handful;
 //   * rows fastest across lanes: thread t works on row t % R of its
 //     block's R rows and on neurons t / R, t / R + T/R, ...  The lanes of
 //     one neuron read the same `conn` words (a broadcast) and gather from
 //     the same table row (a few cache lines, not 32), and the codes sit in
 //     shared memory column-major (code c of row r at c*R + r), so those
 //     lanes read consecutive banks;
-//   * each output's reads issued together: the per-neuron work is a
-//     template on (A, F) for the combinations of the paper's models, and on
-//     the slab encodings, chosen by one branch per layer.  All A*F `conn`
-//     loads are independent (16 or 8 bytes at a time where the slab is so
-//     aligned), then all A*F code reads, then the A sub-table reads, then
-//     the adder read: three dependent memory steps after the `conn`
-//     loads.  Each thread carries two neurons at once.  Any other (A, F)
-//     or encoding takes a generic path with runtime loops;
+//   * each output's reads issued together: the per-neuron work (run_layer,
+//     shared by all three kernels) is a template on (A, F) for the
+//     combinations of the paper's models, and on the slab encodings,
+//     chosen by one branch per layer.  All A*F `conn` loads are
+//     independent (16 or 8 bytes at a time where the slab is so aligned),
+//     then all A*F code reads, then the A sub-table reads, then the adder
+//     read: three dependent memory steps after the `conn` loads.  Each
+//     thread carries two neurons at once.  Any other (A, F) or encoding
+//     takes a generic path with runtime loops;
 //   * the shared-memory carveout is set per launch to what the resident
 //     blocks need, so the rest of the SM's 256 KB stays L1 for the tables.
 //
@@ -64,8 +64,14 @@
 #define ENC_INT4 2
 #define ENC_NONE (-1)  // adder off: the layer's output is sub-neuron 0's code
 
-static constexpr int kGatherThreads = 256;   // kernel 3
-static constexpr int kMaxFusedThreads = 512;  // kernels 1 and 2
+// Launch bounds: each kernel is held to 64 registers a thread, so the
+// residency the wrapper plans (lut_gather.py, MAX_REGS_PER_THREAD) fits.
+static constexpr int kMaxGatherThreads = 256;     // kernel 3
+static constexpr int kMaxFusedThreads = 512;      // kernel 1
+static constexpr int kMaxPipelinedThreads = 256;  // kernel 2
+// kernel 2's ring holds at most two input stages (the TPU kernel's two
+// in-slots)
+static constexpr int kMaxStages = 2;
 
 // One layer as the kernels see it; mirrored by _LayerDesc in lut_gather.py
 // (lut_desc_size() lets the wrapper check the layout).
@@ -99,8 +105,7 @@ __device__ __forceinline__ int read_code(const uint8_t* slab, int enc,
 }
 
 // Generic path: output code of neuron n for one row whose code c sits at
-// row[c * cs] (cs = 1 for a row-major row in device memory, the block's
-// row count for the fused kernels' column-major shared memory).
+// row[c * cs].
 __device__ __forceinline__ int lut_neuron(const LayerDesc& L,
                                           const int32_t* row, int cs, int n) {
   unsigned aidx = 0;
@@ -120,31 +125,19 @@ __device__ __forceinline__ int lut_neuron(const LayerDesc& L,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 3: one layer, one thread per output (row, neuron).  The flat
-// index covers the ragged batch and neuron edges with one bound check.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kGatherThreads)
-lut_gather_kernel(const int32_t* __restrict__ codes, int32_t* __restrict__ out,
-                  int B, LayerDesc L) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (t >= static_cast<long long>(B) * L.n_out) return;
-  const int b = static_cast<int>(t / L.n_out);
-  const int n = static_cast<int>(t - static_cast<long long>(b) * L.n_out);
-  out[t] = lut_neuron(L, codes + static_cast<long long>(b) * L.n_in, 1, n);
-}
-
-// ---------------------------------------------------------------------------
-// One layer of a fused block, for this thread's row r and its neurons
-// n0, n0 + nstep, ...  Source code c of row r is src[c * R + r]; output n
-// of row r goes to dst[r * d_rs + n * d_cs].
+// One layer for this thread's row r and its neurons n0, n0 + nstep, ...
+// below n_end.  Source code c of row r is src[r * s_rs + c * s_cs]
+// (column-major shared memory: s_rs = 1, s_cs = R; row-major: s_rs = the
+// row's width, s_cs = 1); output n of row r goes to
+// dst[r * d_rs + n * d_cs].
 // ---------------------------------------------------------------------------
 struct Pass {
   const int32_t* src;
   int32_t* dst;
   long long d_rs;
   int d_cs;
-  int R, r, n0, nstep;
+  int s_rs, s_cs;
+  int r, n0, nstep, n_end;
 };
 
 // One neuron's N conn indices: 16- or 8-byte loads where N and the slab's
@@ -185,10 +178,10 @@ __device__ __forceinline__ void layer_af(const LayerDesc& L, const Pass& p) {
   const unsigned amask = static_cast<unsigned>(L.Ka - 1);
   const int in_bits = L.in_bits, sub_bits = L.sub_bits;
   const bool vec = (reinterpret_cast<uintptr_t>(L.conn) & 15) == 0;
-  const int32_t* srow = p.src + p.r;
+  const int32_t* srow = p.src + p.r * p.s_rs;
   int32_t* drow = p.dst + p.r * p.d_rs;
-  for (int nb = p.n0; nb < L.n_out; nb += 2 * p.nstep) {
-    const bool two = nb + p.nstep < L.n_out;
+  for (int nb = p.n0; nb < p.n_end; nb += 2 * p.nstep) {
+    const bool two = nb + p.nstep < p.n_end;
     const int n[2] = {nb, two ? nb + p.nstep : nb};
     int c[2][A * F];
 #pragma unroll
@@ -202,7 +195,7 @@ __device__ __forceinline__ void layer_af(const LayerDesc& L, const Pass& p) {
         unsigned x = 0;
 #pragma unroll
         for (int f = 0; f < F; ++f)
-          x += static_cast<unsigned>(srow[c[i][a * F + f] * p.R])
+          x += static_cast<unsigned>(srow[c[i][a * F + f] * p.s_cs])
                << (in_bits * f);
         idx[i][a] = x & kmask;
       }
@@ -233,10 +226,10 @@ __device__ __forceinline__ void layer_af(const LayerDesc& L, const Pass& p) {
 }
 
 __device__ __noinline__ void layer_generic(const LayerDesc& L, const Pass& p) {
+  const int32_t* srow = p.src + p.r * p.s_rs;
   int32_t* drow = p.dst + p.r * p.d_rs;
-  for (int n = p.n0; n < L.n_out; n += p.nstep)
-    drow[static_cast<long long>(n) * p.d_cs] =
-        lut_neuron(L, p.src + p.r, p.R, n);
+  for (int n = p.n0; n < p.n_end; n += p.nstep)
+    drow[static_cast<long long>(n) * p.d_cs] = lut_neuron(L, srow, p.s_cs, n);
 }
 
 // The encodings of one (A, F): single sub-neurons (A == 1) with the adder
@@ -290,25 +283,90 @@ __device__ __forceinline__ void run_layer(const LayerDesc& L, const Pass& p) {
   if (!done) layer_generic(L, p);
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
 // ---------------------------------------------------------------------------
-// Fused layers of one tile of `here` <= R rows.  Layer 0 reads `in`;
-// layer l >= 1 reads what layer l-1 wrote.  Hidden layers write P (even l)
-// or Q (odd l) — two buffers, so no layer overwrites codes that other
-// threads are still reading — and the last layer writes `out` (row-major,
-// device memory).  All three are column-major with R rows.  A barrier
-// separates the layers.  Threads beyond the last whole row group, and
-// those whose row lies past the tile's end, only take the barriers.
+// Kernel 3: one layer.  Block (x, y) takes rows x*R .. x*R + R-1 and
+// neurons y*ntile .. y*ntile + ntile-1, as the TPU kernel's grid takes
+// batch tiles x neuron tiles.  With `staged` the block first copies its
+// rows' input codes into shared memory, column-major (code c of row r at
+// c*R + r, as the fused kernels hold them), by 4-byte cp.async copies, all
+// in flight at once, thread t copying row t % R so that a warp's copies
+// land in consecutive banks; a layer whose rows do not fit a block's
+// shared memory (over ~58,000 input codes) reads them from device memory,
+// row-major.  Then run_layer, the fused kernels' own per-neuron code,
+// writes the block's outputs row-major to device memory.  The layer comes
+// by value, so no thread waits on a descriptor read.
+//
+// A chain of layers (lut_layers_launch) is a chain of dependent launches,
+// each a few microseconds of dependent reads, so the gaps between them
+// count: each layer after the first is a programmatic dependent launch.
+// Its blocks are scheduled while the layer before still runs and wait
+// (griddepcontrol.wait) for it to finish and its codes to be visible
+// before they touch the codes or the output buffers; a launch without a
+// prerequisite grid passes the wait at once.  (Bringing the first
+// neurons' conn and table rows into L1 before the wait was tried, and
+// was no faster: kernel_ab.py --sweep on the H100.)
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kMaxGatherThreads, 4)
+lut_gather_kernel(const int32_t* __restrict__ codes, int32_t* __restrict__ out,
+                  int B, const LayerDesc L, int R, int ntile, int staged) {
+  extern __shared__ __align__(16) int32_t smem[];
+  // the next layer's launch may begin; its blocks wait for this grid
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int tid = static_cast<int>(threadIdx.x);
+  const long long row0 = static_cast<long long>(blockIdx.x) * R;
+  const int here = static_cast<int>(
+      min(static_cast<long long>(R), static_cast<long long>(B) - row0));
+  const int nstep = static_cast<int>(blockDim.x) / R;
+  const int r = tid % R;
+  const bool active = tid < nstep * R && r < here;
+  const int32_t* rows = codes + row0 * L.n_in;
+  Pass p{rows, out + row0 * L.n_out, L.n_out, 1, L.n_in, 1, r,
+         static_cast<int>(blockIdx.y) * ntile + tid / R, nstep,
+         min(L.n_out, static_cast<int>(blockIdx.y + 1) * ntile)};
+  if (staged) {
+    if (active)
+      for (int c = tid / R; c < L.n_in; c += nstep)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                     ::"r"(smem_addr(smem + c * R + r)),
+                       "l"(rows + static_cast<long long>(r) * L.n_in + c));
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    p.src = smem;
+    p.s_rs = 1;
+    p.s_cs = R;
+  }
+  if (active) run_layer(L, p);
+}
+
+// ---------------------------------------------------------------------------
+// Fused layers of one tile of `here` <= R rows.  Layer 0 reads `in`, code
+// c of row r at in[r * in_rs + c * in_cs]; layer l >= 1 reads what layer
+// l-1 wrote.  Hidden layers write P (even l) or Q (odd l) — two buffers,
+// so no layer overwrites codes that other threads are still reading — and
+// the last layer writes `out` (row-major, device memory).  P and Q are
+// column-major with R rows.  A barrier separates the layers.  Threads
+// beyond the last whole row group, and those whose row lies past the
+// tile's end, only take the barriers.
 // ---------------------------------------------------------------------------
 __device__ void run_layers(const LayerDesc* __restrict__ layers, int n_layers,
-                           const int32_t* in, int32_t* P, int32_t* Q, int R,
-                           int here, int32_t* __restrict__ out) {
+                           const int32_t* in, int in_rs, int in_cs,
+                           int32_t* P, int32_t* Q, int R, int here,
+                           int32_t* __restrict__ out) {
   const int tid = static_cast<int>(threadIdx.x);
   const int nstep = static_cast<int>(blockDim.x) / R;
   const int r = tid % R;
   const bool active = tid < nstep * R && r < here;
-  Pass p{in, nullptr, 0, 0, R, r, active ? tid / R : INT_MAX, nstep};
+  Pass p{in, nullptr, 0, 0, in_rs, in_cs, r, active ? tid / R : INT_MAX,
+         nstep, 0};
   for (int l = 0; l < n_layers; ++l) {
     const LayerDesc L = layers[l];
+    p.n_end = L.n_out;
     if (l == n_layers - 1) {
       p.dst = out;
       p.d_rs = L.n_out;
@@ -321,6 +379,8 @@ __device__ void run_layers(const LayerDesc* __restrict__ layers, int n_layers,
       run_layer(L, p);
       __syncthreads();
       p.src = p.dst;
+      p.s_rs = 1;
+      p.s_cs = R;
     }
   }
 }
@@ -361,8 +421,56 @@ lut_fused_kernel(const int32_t* __restrict__ codes, int32_t* __restrict__ out,
   stage_codes(in, codes + row0 * n_in0, here, n_in0, rows);
   asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
-  run_layers(layers, n_layers, in, P, Q, rows, here,
+  run_layers(layers, n_layers, in, 1, rows, P, Q, rows, here,
              out + row0 * n_out_last);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2's input ring.  A tile of rows is one contiguous span of
+// rows x n_in0 int32 in device memory, so one bulk asynchronous copy
+// (cp.async.bulk, completion counted in bytes on an mbarrier) moves it
+// into a stage: the copy engine computes the addresses, and the threads
+// spend no instructions on it.  A bulk copy wants 16-byte-aligned
+// addresses and a multiple of 16 bytes, so the tile lands at the offset
+// of its start within 16 bytes (`tile_lead`, 0-3 codes; each stage has 16
+// bytes of slack for it), and the up to 3 codes before the first 16-byte
+// boundary and after the last one are copied by the issuing thread before
+// it arrives on the barrier.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ int tile_lead(const int32_t* src) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(src) & 15) >> 2);
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// One thread: copy n codes from src (device memory) to stage + tile_lead,
+// and arrive on `bar`, whose phase completes when the bytes have landed.
+__device__ __forceinline__ void load_tile(int32_t* stage, uint64_t* bar,
+                                          const int32_t* src, int n) {
+  int32_t* dst = stage + tile_lead(src);
+  const int head = min(n, (4 - tile_lead(src)) & 3);
+  const int body = (n - head) & ~3;
+  for (int k = 0; k < head; ++k) dst[k] = __ldg(src + k);
+  for (int k = head + body; k < n; ++k) dst[k] = __ldg(src + k);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(4 * body) : "memory");
+  if (body > 0)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n"
+        ::"r"(smem_addr(dst + head)), "l"(src + head), "r"(4 * body),
+          "r"(smem_addr(bar))
+        : "memory");
 }
 
 __device__ __forceinline__ int tile_rows(int tile, int rows, int B) {
@@ -370,48 +478,80 @@ __device__ __forceinline__ int tile_rows(int tile, int rows, int B) {
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 2: persistent form of kernel 1.  gridDim.x = min(n_tiles, #SMs);
-// block b walks tiles b, b + gridDim.x, ...  While tile i computes, tile
-// i+1's input codes stream into the other in-slot with cp.async — the two
-// in-slots of the TPU kernel's DMA schedule.  Output rows go straight to
+// Kernel 2: persistent form of kernel 1.  The wrapper sizes the grid to
+// what the card holds resident and the rows per tile so that the tiles
+// divide evenly over it (lut_gather.py: fused_geometry); block b walks
+// tiles b, b + gridDim.x, ...  A ring of input stages takes the
+// place of the TPU kernel's two in-slots: the block's first `stages`
+// tiles are requested at once, and each stage is refilled with the tile
+// `stages` ahead as soon as every thread is done with it, so tile i+1's
+// codes stream in while tile i computes.  Output rows go straight to
 // device memory from the last layer, so no out-slots are needed.
-// Shared memory: slot0 | slot1 (n_in0 x rows each) | P | Q, int32,
-// column-major.  Same run_layers as kernel 1, so the two agree bit for bit.
+//
+// Layer 0 reads its codes where the bulk copy put them, row-major (code
+// c of row r at r*n_in0 + c), through the strides Pass carries; a
+// transpose into kernel 1's column-major layout would cost a pass over
+// the tile's codes, a barrier and a third buffer of shared memory a row.
+// The price: the R lanes of one neuron read R words n_in0 apart, which
+// share a bank when n_in0 * 4 bytes is a multiple of 128, and otherwise
+// (HDR-Add2's 784 codes, JSC-XL-Add2's 16: 16 words mod 32) fall on two
+// banks, a max(1, R/2)-way conflict on layer 0's code reads only; later
+// layers read P and Q column-major, conflict-free, as kernel 1 does.
+//
+// Shared memory: `stages` mbarriers (8 bytes each, in a 16-byte slot) |
+// `stages` stages of round_up4(rows*n_in0) + 4 int32 | P (wP x rows) |
+// Q (wQ x rows), exactly the wrapper's ledger (fused_smem_bytes with
+// pipeline=True).  A launch whose blocks walk one tile each takes one
+// stage (there is nothing to prefetch), so it holds as many blocks per
+// SM as kernel 1 would.  Same run_layers as kernel 1, so the two agree
+// bit for bit.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kMaxFusedThreads, 1)
+__global__ void __launch_bounds__(kMaxPipelinedThreads, 4)
 lut_fused_pipelined_kernel(const int32_t* __restrict__ codes,
                            int32_t* __restrict__ out, int B,
                            const LayerDesc* __restrict__ layers, int n_layers,
-                           int rows, int wP, int wQ) {
+                           int rows, int wP, int wQ, int stages) {
   extern __shared__ __align__(16) int32_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   const int n_in0 = layers[0].n_in;
   const int n_out_last = layers[n_layers - 1].n_out;
-  int32_t* slot0 = smem;
-  int32_t* slot1 = slot0 + rows * n_in0;
-  int32_t* P = slot1 + rows * n_in0;
+  const long long tile_codes = static_cast<long long>(rows) * n_in0;
+  const int stride = ((rows * n_in0 + 3) & ~3) + 4;
+  int32_t* ring = smem + 4;
+  int32_t* P = ring + stages * stride;
   int32_t* Q = P + rows * wP;
   const int n_tiles = (B + rows - 1) / rows;
-  int tile = blockIdx.x;
-  if (tile >= n_tiles) return;
-  stage_codes(slot0, codes + static_cast<long long>(tile) * rows * n_in0,
-              tile_rows(tile, rows, B), n_in0, rows);
-  for (int s = 0; tile < n_tiles; tile += gridDim.x, s ^= 1) {
-    const int next = tile + gridDim.x;
-    if (next < n_tiles) {
-      // the other slot was last read by the previous tile, which every
-      // thread finished before the barrier at the end of the loop body
-      stage_codes(s ? slot0 : slot1,
-                  codes + static_cast<long long>(next) * rows * n_in0,
-                  tile_rows(next, rows, B), n_in0, rows);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                   ::"r"(smem_addr(full + s)), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int s = 0; s < stages; ++s) {
+      const int t = blockIdx.x + s * gridDim.x;
+      if (t < n_tiles)
+        load_tile(ring + s * stride, full + s, codes + t * tile_codes,
+                  tile_rows(t, rows, B) * n_in0);
     }
-    __syncthreads();
-    run_layers(layers, n_layers, s ? slot1 : slot0, P, Q, rows,
-               tile_rows(tile, rows, B),
+  int i = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+    const int s = i % stages;
+    const int32_t* src = codes + tile * tile_codes;
+    mbar_wait(full + s, static_cast<unsigned>(i / stages) & 1);
+    run_layers(layers, n_layers, ring + s * stride + tile_lead(src), n_in0,
+               1, P, Q, rows, tile_rows(tile, rows, B),
                out + static_cast<long long>(tile) * rows * n_out_last);
+    // every thread is done with stage s, P and Q
     __syncthreads();
+    const int next = tile + stages * gridDim.x;
+    if (threadIdx.x == 0 && next < n_tiles) {
+      // order the threads' reads of the stage before the copy's writes
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      load_tile(ring + s * stride, full + s, codes + next * tile_codes,
+                tile_rows(next, rows, B) * n_in0);
+    }
   }
 }
 
@@ -421,27 +561,11 @@ lut_fused_pipelined_kernel(const int32_t* __restrict__ codes,
 // ---------------------------------------------------------------------------
 extern "C" int lut_desc_size() { return static_cast<int>(sizeof(LayerDesc)); }
 
-extern "C" int lut_gather_launch(const int32_t* codes, int32_t* out, int B,
-                                 const int32_t* conn, const uint8_t* sub,
-                                 const uint8_t* add, int n_in, int n_out,
-                                 int A, int F, int in_bits, int sub_bits,
-                                 int K, int Ka, int sub_enc, int add_enc,
-                                 void* stream) {
-  const LayerDesc L{conn, sub, add, n_in, n_out, A, F, in_bits, sub_bits,
-                    K, Ka, sub_enc, add_enc, 0, 0};
-  const long long total = static_cast<long long>(B) * n_out;
-  if (total == 0) return 0;
-  const unsigned blocks =
-      static_cast<unsigned>((total + kGatherThreads - 1) / kGatherThreads);
-  lut_gather_kernel<<<blocks, kGatherThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(codes, out, B, L);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The shared-memory carveout (percent of the SM's unified L1 / shared
 // memory) is a hint that CUDA rounds up to a configuration that holds the
 // launch; the last value set for each kernel is remembered so a steady
-// stream of one geometry sets it once.
+// stream of one geometry sets it once.  The same for the most dynamic
+// shared memory a launch of each kernel may take.
 static cudaError_t set_carveout(const void* kernel, std::atomic<int>& last,
                                 int percent) {
   if (percent < 0 || last.exchange(percent) == percent) return cudaSuccess;
@@ -449,15 +573,79 @@ static cudaError_t set_carveout(const void* kernel, std::atomic<int>& last,
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout, percent);
 }
 
-static std::atomic<int> g_carveout_fused{-1}, g_carveout_pipelined{-1};
+static cudaError_t set_max_smem(const void* kernel, std::atomic<int>& last,
+                                int bytes) {
+  if (bytes <= 48 * 1024 || last.load() >= bytes) return cudaSuccess;
+  last.store(bytes);
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
 
+static std::atomic<int> g_carveout_fused{-1}, g_carveout_pipelined{-1},
+    g_carveout_gather{-1};
+static std::atomic<int> g_smem_fused{0}, g_smem_pipelined{0},
+    g_smem_gather{0};
+
+// Kernel 3 over a chain of n_layers layers (one layer: lut_gather; a
+// per_layer plan: the whole forward), one launch a layer, from one host
+// call.  `layers` is the host array of descriptors (each launch takes its
+// layer by value); `geo` holds 6 ints a layer: rows, threads, neuron
+// tile, row tiles, neuron tiles, dynamic shared memory (0: unstaged).
+// Layer l writes `out` if it is the last, else buf0 (even l) or buf1
+// (odd l), each B x that layer's width; layer l+1 reads it.
+extern "C" int lut_layers_launch(const int32_t* codes, int32_t* out, int B,
+                                 const void* layers, int n_layers,
+                                 int32_t* buf0, int32_t* buf1,
+                                 const int32_t* geo, int carveout,
+                                 void* stream) {
+  if (B == 0 || n_layers == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const LayerDesc* d = static_cast<const LayerDesc*>(layers);
+  const void* kernel = reinterpret_cast<const void*>(lut_gather_kernel);
+  int most = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    const int* g = geo + 6 * l;
+    if (g[1] < 1 || g[1] > kMaxGatherThreads || g[0] < 1 || g[0] > g[1] ||
+        g[2] < 1 || g[3] < 1 || g[4] < 1 || g[4] > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
+    most = max(most, g[5]);
+  }
+  cudaError_t e = set_carveout(kernel, g_carveout_gather, carveout);
+  if (e == cudaSuccess) e = set_max_smem(kernel, g_smem_gather, most);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute pdl[1] = {};
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  const int32_t* src = codes;
+  for (int l = 0; l < n_layers; ++l) {
+    const int* g = geo + 6 * l;
+    int32_t* dst = l == n_layers - 1 ? out : ((l & 1) ? buf1 : buf0);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(g[3], g[4]);
+    cfg.blockDim = dim3(g[1]);
+    cfg.dynamicSmemBytes = g[5];
+    cfg.stream = st;
+    cfg.attrs = pdl;
+    cfg.numAttrs = l > 0 ? 1 : 0;  // layer l > 0 depends on layer l-1
+    e = cudaLaunchKernelEx(&cfg, lut_gather_kernel, src, dst, B, d[l], g[0],
+                           g[2], static_cast<int>(g[5] > 0));
+    if (e == cudaSuccess) e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    src = dst;
+  }
+  return 0;
+}
+
+// `pipeline` is 0 for kernel 1, else kernel 2's ring stages (1 or 2).
 extern "C" int lut_fused_launch(const int32_t* codes, int32_t* out, int B,
                                 const void* layers, int n_layers, int rows,
                                 int threads, int wP, int wQ, int smem_bytes,
                                 int pipeline, int grid, int carveout,
                                 void* stream) {
   if (B == 0) return 0;
-  if (threads < 1 || threads > kMaxFusedThreads || rows < 1 || rows > threads)
+  const int most = pipeline ? kMaxPipelinedThreads : kMaxFusedThreads;
+  if (threads < 1 || threads > most || rows < 1 || rows > threads ||
+      pipeline < 0 || pipeline > kMaxStages)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const LayerDesc* d = static_cast<const LayerDesc*>(layers);
@@ -466,16 +654,13 @@ extern "C" int lut_fused_launch(const int32_t* codes, int32_t* out, int B,
                : reinterpret_cast<const void*>(lut_fused_kernel);
   cudaError_t e = set_carveout(
       kernel, pipeline ? g_carveout_pipelined : g_carveout_fused, carveout);
+  if (e == cudaSuccess)
+    e = set_max_smem(kernel, pipeline ? g_smem_pipelined : g_smem_fused,
+                     smem_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (smem_bytes > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
   if (pipeline)
     lut_fused_pipelined_kernel<<<grid, threads, smem_bytes, st>>>(
-        codes, out, B, d, n_layers, rows, wP, wQ);
+        codes, out, B, d, n_layers, rows, wP, wQ, pipeline);
   else
     lut_fused_kernel<<<grid, threads, smem_bytes, st>>>(
         codes, out, B, d, n_layers, rows, wP, wQ);

@@ -2,7 +2,9 @@
 ``repro.kernels.lut_gather.ops``).
 
 ``lut_layer`` runs one synthesised layer through the per-layer kernel;
-``lut_network`` chains it over a whole network; ``lut_network_fused``
+``lut_network`` chains it over a whole network (one launch a layer, all
+from one host call, as the reference's jitted ``lut_network`` is one
+dispatch); ``lut_network_fused``
 runs every layer in ONE launch with the inter-layer codes in shared
 memory.  ``plan_segments`` decides how a network runs: one fused launch
 when a block of it fits the card's shared memory (every network of the
@@ -68,10 +70,9 @@ def lut_layer(codes: torch.Tensor, conn: torch.Tensor,
 
 def lut_network(tables: List, codes: torch.Tensor) -> torch.Tensor:
     """Per-layer path: one launch per layer, codes through device memory
-    between layers."""
-    for a in _layer_args(tables, codes.shape[1]):
-        codes = K.lut_gather(codes, a)
-    return codes
+    between layers, every launch from one host call."""
+    return K.lut_layers(codes, K.FusedNet(_layer_args(tables,
+                                                      codes.shape[1])))
 
 
 def lut_network_fused(tables: List, codes: torch.Tensor,
@@ -225,14 +226,12 @@ def _compile_plan(tables: List, plan: SegmentPlan) -> Callable:
     """Check the tables once (conn ranges included), build each
     segment's descriptor array, and return ``run(codes)``.  Each
     segment's ``block_b`` is a cap: every call picks its rows per block
-    from its batch (``lut_gather.fused_geometry``)."""
+    from its batch (``lut_gather.fused_geometry``).  A ``per_layer`` run
+    is one host call a forward (``lut_gather.lut_layers``)."""
     args = _layer_args(tables, plan.n_in0, check_conn=True)
     if plan.mode == "per_layer":
-        def run(codes):
-            for a in args:
-                codes = K.lut_gather(codes, a)
-            return codes
-        return run
+        chain = K.FusedNet(args)
+        return lambda codes: K.lut_layers(codes, chain)
     segs = [(K.FusedNet(args[s:e]), bb)
             for (s, e), bb in zip(plan.bounds, plan.block_b)]
 

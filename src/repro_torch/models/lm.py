@@ -95,7 +95,8 @@ def param_count(cfg: LMConfig) -> Tuple[int, int]:
 # blocks
 # ---------------------------------------------------------------------------
 
-def _norm_init(cfg: LMConfig, d: int, device) -> dict:
+def _norm_init(cfg: LMConfig, d: int, device: DeviceLike = None) -> dict:
+    device = resolve_device(device)
     if cfg.norm == "rms":
         return {"scale": torch.zeros((d,), dtype=torch.float32,
                                      device=device)}
@@ -110,8 +111,10 @@ def _norm_apply(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def block_init(generator: torch.Generator, cfg: LMConfig,
-               kind: Tuple[str, str], device=None) -> dict:
+               kind: Tuple[str, str], device: DeviceLike = None) -> dict:
+    """One block's weights on ``device`` (the card unless named)."""
     _check_kind(kind)
+    device = resolve_device(device)
     return {"norm1": _norm_init(cfg, cfg.d_model, device),
             "norm2": _norm_init(cfg, cfg.d_model, device),
             "rwkv": RC.rwkv_init(generator, cfg.d_model, cfg.n_heads,
@@ -119,9 +122,11 @@ def block_init(generator: torch.Generator, cfg: LMConfig,
 
 
 def block_cache_init(cfg: LMConfig, kind: Tuple[str, str], batch: int,
-                     max_len: int, device=None) -> dict:
-    """Decode-time state of one block (O(1) in ``max_len`` for RWKV)."""
+                     max_len: int, device: DeviceLike = None) -> dict:
+    """Decode-time state of one block (O(1) in ``max_len`` for RWKV), on
+    ``device`` (the card unless named)."""
     _check_kind(kind)
+    device = resolve_device(device)
     return RC.rwkv_state_init(batch, cfg.d_model, cfg.n_heads, cfg.dtype,
                               device=device)
 

@@ -27,6 +27,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import DeviceLike, resolve_device
+
 LOG_DECAY_MIN = -1.0
 WKV_CHUNK = 32
 
@@ -39,10 +41,11 @@ def _normal(g: torch.Generator, shape, scale: float, dtype,
 
 def rwkv_init(generator: torch.Generator, d_model: int, n_heads: int,
               d_ff: int, lora_rank: int = 64, dtype=torch.bfloat16,
-              device=None) -> dict:
+              device: DeviceLike = None) -> dict:
     """One block's time-mix and channel-mix weights, drawn from
-    ``generator`` (which must live on ``device``); the same shapes,
-    scales and dtypes as the reference."""
+    ``generator`` (which must live on ``device``, the card unless
+    named); the same shapes, scales and dtypes as the reference."""
+    device = resolve_device(device)
     hd = d_model // n_heads
     sd = 1.0 / math.sqrt(d_model)
     f32 = dict(dtype=torch.float32, device=device)
@@ -197,7 +200,10 @@ def rwkv_channel_mix(p: dict, x: torch.Tensor,
 
 
 def rwkv_state_init(batch: int, d_model: int, n_heads: int,
-                    dtype=torch.bfloat16, device=None) -> dict:
+                    dtype=torch.bfloat16, device: DeviceLike = None) -> dict:
+    """Zero decode state of one block on ``device`` (the card unless
+    named)."""
+    device = resolve_device(device)
     hd = d_model // n_heads
     return {
         "x_tm": torch.zeros((batch, d_model), dtype=dtype, device=device),

@@ -40,6 +40,7 @@ def _engines(tables, n_in0):
             "pipelined": lambda c: K.lut_network_fused(c, net,
                                                        pipeline=True),
             "per_layer": per_layer,
+            "per_layer_chain": lambda c: K.lut_layers(c, net),
             "plain": lambda c: ref.lut_network(
                 c, [a.plain() for a in args])}
 
@@ -57,7 +58,7 @@ def test_kernels_reproduce_golden(cuda, unpack):
         got = fn(codes).cpu().numpy()
         np.testing.assert_array_equal(got, io["outputs"], err_msg=name)
     counts = K.launch_counts()
-    assert counts == {"lut_gather": len(art.tables),
+    assert counts == {"lut_gather": 2 * len(art.tables),
                       "lut_network_fused": 1,
                       "lut_network_fused_pipelined": 1}
 
@@ -220,7 +221,8 @@ def _all_kernels_match(layers, codes):
     for name, got in (("fused", K.lut_network_fused(codes, net)),
                       ("pipelined", K.lut_network_fused(codes, net,
                                                         pipeline=True)),
-                      ("per_layer", c)):
+                      ("per_layer", c),
+                      ("per_layer_chain", K.lut_layers(codes, net))):
         assert torch.equal(got, want), name
 
 
@@ -229,8 +231,9 @@ def _all_kernels_match(layers, codes):
 @pytest.mark.parametrize("enc", ["uint8", "int32", "int4"])
 @pytest.mark.parametrize("A,F", AF_INSTANTIATED + AF_GENERIC)
 def test_fused_instantiations_match_plain(cuda, A, F, enc, adder):
-    """Every (A, F) instantiation of the fused kernels and the generic
-    path, each slab encoding, adder on and off: kernels 1-3 equal the
+    """Every (A, F) instantiation of the kernels' per-layer code and the
+    generic path, each slab encoding, adder on and off: kernels 1-3
+    (kernel 3 one call a layer and as the one-call chain) equal the
     plain version bit for bit at batches around the geometry's steps."""
     layers = _random_net(A, F, enc, adder, cuda, seed=A * 10 + F)
     rng = np.random.default_rng(F)
@@ -272,6 +275,136 @@ def test_fused_geometry_overrides_match_plain(cuda):
             got = K.lut_network_fused(codes, net, rows=rows,
                                       pipeline=pipeline)
             assert torch.equal(got, want), (rows, pipeline)
+
+
+# ---------------------------------------------------------------------------
+# kernel 2's ring of stages and kernel 3's one-call chain
+# ---------------------------------------------------------------------------
+
+def _codes_at(cuda, rng, B, n_in, offset=0):
+    """(B, n_in) int32 codes on the card whose first code lies ``offset``
+    codes past a 16-byte boundary (a view into a larger buffer)."""
+    buf = torch.empty((B * n_in + offset,), dtype=torch.int32, device=cuda)
+    codes = buf[offset:].view(B, n_in)
+    codes.copy_(torch.from_numpy(rng.integers(0, 4, (B, n_in)).astype(
+        np.int32)))
+    assert codes.data_ptr() % 16 == 4 * offset
+    return codes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 33, 257, 1000, 4096])
+def test_pipelined_kernel_batches(cuda, B):
+    """Kernel 2 at the geometry it picks for each batch, HDR-Add2's (2, 4)
+    per-layer code on int4 slabs: equal to the plain version."""
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    from repro_torch.kernels.lut_gather import ref
+    layers = _random_net(2, 4, "int4", True, cuda, seed=B)
+    net = K.FusedNet(layers)
+    codes = _codes_at(cuda, np.random.default_rng(B), B, 40)
+    want = ref.lut_network(codes, [a.plain() for a in layers])
+    assert torch.equal(K.lut_network_fused(codes, net, pipeline=True), want)
+
+
+def _pipelined_capacity(K, net, rows):
+    """Blocks of ``rows`` rows the card holds resident for kernel 2 (one
+    input stage): past that many tiles a block walks several."""
+    g = net.geometry(1, True, rows=rows)
+    one = K.fused_smem_bytes(net.n_in0, net.widths, rows, True, 1)
+    return K.resident_blocks(g.threads, one) * net.n_sms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_in0", [40, 37])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("rows,tiles", [(2, 3), (3, 4), (5, 7), (1, 9)])
+def test_pipelined_ring_wraps(cuda, rows, tiles, offset, n_in0):
+    """Blocks that walk three or more tiles through the two-stage ring
+    (each stage refilled and waited on again), reached by batches past
+    what the card holds a block each for a narrow net; ragged last tiles
+    (B not a multiple of rows), and tiles that start 0-3 codes past a
+    16-byte boundary (an input width of 37 codes, codes at an offset):
+    the bulk copies' head and tail and the stages' slack.  Equal to the
+    plain version."""
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    from repro_torch.kernels.lut_gather import ref
+    layers = _random_net(2, 2, "uint8", True, cuda, seed=rows, n_in0=n_in0)
+    net = K.FusedNet(layers)
+    cap = _pipelined_capacity(K, net, rows)
+    rng = np.random.default_rng(rows * 10 + offset)
+    for B in (rows * (cap * (tiles - 1) + 5) + 1,
+              rows * (cap * tiles - 1) + 1):
+        codes = _codes_at(cuda, rng, B, n_in0, offset)
+        want = ref.lut_network(codes, [a.plain() for a in layers])
+        g = net.geometry(B, True, rows=rows)
+        assert (g.tiles, g.stages) == (tiles, 2), (B, g)
+        assert g.grid * g.tiles >= -(-B // rows)
+        got = K.lut_network_fused(codes, net, pipeline=True, rows=rows)
+        assert torch.equal(got, want), (B, rows, tiles, offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [4, None])
+def test_pipelined_one_stage_walks_tiles(cuda, rows):
+    """Blocks that walk several tiles through a one-stage ring (a second
+    stage would cost resident blocks, at HDR-Add2's 784 input codes): each
+    tile's copy is issued once the tile before it is done.  At 4 rows a
+    block forced, and as the geometry picks it for a batch past what the
+    card holds a block each.  Equal to the plain version."""
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    from repro_torch.kernels.lut_gather import ref
+    layers = _random_net(2, 4, "int4", True, cuda, seed=rows or 0,
+                         n_in0=784, widths=(256, 100, 10))
+    net = K.FusedNet(layers)
+    B = 20000 if rows is None else \
+        rows * (2 * _pipelined_capacity(K, net, rows) + 5) + 1
+    g = net.geometry(B, True, rows=rows)
+    assert g.stages == 1 and g.tiles >= 3, g
+    codes = _codes_at(cuda, np.random.default_rng(B), B, 784, 1)
+    want = ref.lut_network(codes, [a.plain() for a in layers])
+    assert torch.equal(K.lut_network_fused(codes, net, pipeline=True,
+                                           rows=rows), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 33, 256, 1000, 4096, 20000])
+def test_per_layer_chain_matches_per_layer_calls(cuda, B):
+    """Kernel 3's one-call chain against one ``lut_gather`` call a layer
+    and the plain version, at the geometry each picks: 1 to 32 rows a
+    block, and at B=1 and 33 the 600 neurons of the first layer split
+    over blocks; one launch a layer counted."""
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    from repro_torch.kernels.lut_gather import ref
+    layers = _random_net(2, 4, "int4", True, cuda, seed=B + 1, n_in0=37,
+                         widths=(600, 100, 10))
+    net = K.FusedNet(layers)
+    assert (net.layer_geometries(B)[0].neuron_tiles > 1) == (B <= 33)
+    codes = _codes_at(cuda, np.random.default_rng(B), B, 37, B % 4)
+    want = ref.lut_network(codes, [a.plain() for a in layers])
+    c = codes
+    for a in layers:
+        c = K.lut_gather(c, a)
+    assert torch.equal(c, want)
+    K.reset_launch_counts()
+    assert torch.equal(K.lut_layers(codes, net), want)
+    assert K.launch_counts()["lut_gather"] == len(layers)
+
+
+@pytest.mark.gpu
+def test_per_layer_kernel_unstaged_wide_layer(cuda):
+    """A first layer too wide for one staged row (70,000 input codes):
+    kernel 3 reads its codes from device memory and still equals the
+    plain version; the planner sends such a network per layer."""
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    from repro_torch.kernels.lut_gather import ops, ref
+    layers = _random_net(1, 3, "uint8", False, cuda, seed=7, n_in0=70_000,
+                         widths=(64, 10), in_bits=(2, 2))
+    net = K.FusedNet(layers)
+    assert net.layer_geometries(5)[0].smem_bytes == 0
+    codes = _codes_at(cuda, np.random.default_rng(7), 5, 70_000)
+    want = ref.lut_network(codes, [a.plain() for a in layers])
+    assert torch.equal(K.lut_layers(codes, net), want)
+    assert K.block_rows(70_000, net.widths, False) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -156,6 +156,38 @@ def test_lm_entry_points_need_a_card_unless_told(monkeypatch):
                    for t in d.values() if isinstance(t, torch.Tensor))
 
 
+def test_lm_block_helpers_need_a_card_unless_told(monkeypatch):
+    """The per-block helpers resolve their device as the entry points do:
+    called bare on a machine with no card they raise, never landing on
+    the CPU; with ``device="cpu"`` they build there."""
+    from repro_torch.models import recurrent as TRC
+    tcfg = dataclasses.replace(TCFG.smoke_config(), dtype=torch.float32)
+    kind = tcfg.kinds[0]
+    D, H = tcfg.d_model, tcfg.n_heads
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "rwkv_init": lambda **kw: TRC.rwkv_init(torch.Generator(), D, H,
+                                                tcfg.d_ff, **kw),
+        "rwkv_state_init": lambda **kw: TRC.rwkv_state_init(1, D, H, **kw),
+        "block_init": lambda **kw: TLM.block_init(torch.Generator(), tcfg,
+                                                  kind, **kw),
+        "block_cache_init": lambda **kw: TLM.block_cache_init(tcfg, kind, 1,
+                                                              8, **kw),
+        "_norm_init": lambda **kw: TLM._norm_init(tcfg, D, **kw),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        leaves = _tensors(call(device="cpu"))
+        assert leaves and all(t.device.type == "cpu" for t in leaves), name
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [tree]
+
+
 def test_serve_lm_greedy_matches_its_own_logits():
     """The port's serving loop on the CPU: greedy tokens are the argmax
     of the logits before them, and the counts line up."""

@@ -365,12 +365,134 @@ def test_fused_geometry_stays_within_the_ledger(name):
                 assert 1 <= g.rows <= min(cap, max_rows or cap)
                 assert g.rows <= TK.MAX_BLOCK_ROWS
                 assert g.smem_bytes == TK.fused_smem_bytes(
-                    n_in, widths, g.rows, pipeline) <= TK.SMEM_BUDGET_BYTES
+                    n_in, widths, g.rows, pipeline, g.stages) \
+                    <= TK.fused_smem_bytes(n_in, widths, g.rows, pipeline) \
+                    <= TK.SMEM_BUDGET_BYTES
                 tiles = -(-B // g.rows)
-                assert g.grid == (min(tiles, H100_SMS) if pipeline
+                # every tile has a block; a block walks g.tiles of them
+                # (one in grid mode), none a tile more than it must
+                assert g.grid == (-(-tiles // g.tiles) if pipeline
                                   else tiles)
+                assert g.grid * (g.tiles - 1) < tiles <= g.grid * g.tiles
                 assert 0 < g.carveout <= 100
                 assert g.rows <= g.threads <= TK.MAX_FUSED_THREADS
+
+
+@pytest.mark.parametrize("name", PAPER_MODELS)
+def test_pipelined_geometry_fills_the_card(name):
+    """Kernel 2's grid never exceeds what the card holds resident; the
+    registry's 256-row micro-batch runs on most SMs; at B=4096 the tiles
+    divide evenly over the grid; a block walks several tiles only where
+    the card cannot hold a block for each tile, then no block walks more
+    than one tile beyond another, and the two-stage ring (the next
+    tile's copy overlapping) is taken only where it costs no resident
+    block."""
+    _, n_in, widths = _paper_shape(name)
+    for B in (1, 33, 256, 257, 1000, 2048, 4096, 65536, 1 << 20):
+        g = TK.fused_geometry(B, H100_SMS, n_in, widths, True)
+        assert g.grid <= TK.resident_blocks(g.threads, g.smem_bytes) \
+            * H100_SMS
+        assert g.smem_bytes == TK.fused_smem_bytes(n_in, widths, g.rows,
+                                                   True, g.stages)
+        assert g.rows <= g.threads <= TK.MAX_PIPELINED_THREADS
+        tiles = -(-B // g.rows)
+        one = TK.fused_smem_bytes(n_in, widths, g.rows, True, 1)
+        two = TK.fused_smem_bytes(n_in, widths, g.rows, True, 2)
+        if tiles <= TK.resident_blocks(g.threads, one) * H100_SMS:
+            assert (g.tiles, g.grid, g.stages) == (1, tiles, 1)
+        else:
+            assert g.tiles >= 2 and g.grid * (g.tiles - 1) < tiles
+            # a second stage never costs a resident block
+            free = TK.resident_blocks(g.threads, two) == \
+                TK.resident_blocks(g.threads, one)
+            assert g.stages == (2 if free else 1)
+    g = TK.fused_geometry(256, H100_SMS, n_in, widths, True)
+    assert g.grid >= 0.9 * H100_SMS
+    g = TK.fused_geometry(4096, H100_SMS, n_in, widths, True)
+    assert (-(-4096 // g.rows)) % g.grid == 0
+    assert TK.fused_geometry(1, H100_SMS, n_in, widths, True).grid == 1
+    # an empty batch launches nothing (the C entry returns at once)
+    assert TK.fused_geometry(0, H100_SMS, n_in, widths, True).grid == 0
+    assert TK.layer_geometry(0, H100_SMS, n_in, widths[0]).grid == 0
+
+
+def test_pipelined_geometry_of_the_served_models():
+    """The geometries the sweep on the H100 put first: HDR-Add2 2 rows x
+    128 threads on 128 blocks at B=256 and 16 x 256 on 256 blocks at
+    B=4096; JSC-XL-Add2 (its widest layer 128) 32 x 256 on 128 blocks at
+    B=4096 (16 neurons of the widest layer a thread)."""
+    hdr = (784, [256, 100, 100, 100, 100, 10])
+    jsc = (16, [128, 64, 64, 64, 5])
+    for (n_in, widths), B, want in (
+            (hdr, 256, (2, 128, 128)), (hdr, 4096, (16, 256, 256)),
+            (jsc, 256, (2, 128, 128)), (jsc, 4096, (32, 256, 128))):
+        g = TK.fused_geometry(B, H100_SMS, n_in, widths, True)
+        assert (g.rows, g.threads, g.grid, g.tiles, g.stages) == \
+            (*want, 1, 1), (B, widths)
+
+
+def test_pipelined_ledger_is_the_kernels_layout():
+    """The pipelined ledger counts exactly what the kernel lays out: two
+    8-byte barriers, two stages of the tile's codes rounded up to 16
+    bytes plus 16 bytes of alignment slack, and the P and Q buffers; the
+    per-row claim is two input slots and P and Q, as before."""
+    n_in, widths = 784, [256, 100, 100, 100, 100, 10]
+    assert TK.smem_bytes_per_row(n_in, widths, True) == 4 * (2 * 784 + 356)
+    for rows in (1, 3, 4, 30):
+        tile = -(-rows * 784 // 4) * 4
+        assert TK.fused_smem_bytes(n_in, widths, rows, True) == \
+            16 + 4 * (2 * (tile + 4) + rows * 356)
+    # HDR-Add2's cap stays 30 rows: 231,136 bytes of the 232,448
+    assert TK.block_rows(n_in, widths, True) == 30
+    assert TK.fused_smem_bytes(n_in, widths, 31, True) > \
+        TK.SMEM_BUDGET_BYTES >= TK.fused_smem_bytes(n_in, widths, 30, True)
+
+
+@pytest.mark.parametrize("name", PAPER_MODELS)
+def test_layer_geometry_spreads_each_layer(name):
+    """Kernel 3's geometry for every layer of a paper model: the
+    registry's 256 rows spread over most SMs through every layer (a
+    100-wide one too), one row makes a row tile, every (row, neuron) has
+    a block, the staged codes fit the budget, and the neuron tiles split
+    only where row tiles leave SMs idle."""
+    _, n_in, widths = _paper_shape(name)
+    dims = [n_in] + widths
+    for B in (1, 33, 256, 1000, 4096):
+        for k, n_out in zip(dims, widths):
+            g = TK.layer_geometry(B, H100_SMS, k, n_out)
+            assert 1 <= g.rows <= g.threads <= TK.MAX_GATHER_THREADS
+            assert g.row_tiles == -(-B // g.rows)
+            assert g.ntile * g.neuron_tiles >= n_out > \
+                g.ntile * (g.neuron_tiles - 1)
+            assert g.smem_bytes in (0, 4 * g.rows * k)
+            assert g.smem_bytes <= TK.SMEM_BUDGET_BYTES
+            assert g.neuron_tiles == 1 or g.row_tiles < H100_SMS
+            if B == 256:
+                assert g.grid >= 0.9 * H100_SMS
+            if B == 1:
+                assert g.row_tiles == 1
+    # a layer too wide for one staged row reads its codes unstaged
+    g = TK.layer_geometry(8, H100_SMS, 70_000, 33)
+    assert g.smem_bytes == 0 and g.rows >= 1
+
+
+def test_per_layer_plan_matches_reference_lut_network():
+    """The ``per_layer`` plan's CPU path (the plain version of kernel 3's
+    one-call chain) against the JAX package's per-layer ``lut_network``
+    (Pallas kernel in interpret mode), unpacked and int4-packed slabs."""
+    from repro.kernels.lut_gather import ops as jops
+    n_in, fq, u8, _ = network("golden")
+    codes = codes_for(fq, n_in, 23, 6)
+    c = torch.from_numpy(codes)
+    for jt in (u8, LS.pack_tables_int4(u8)):
+        want = np.asarray(jops.lut_network(jt, jnp.asarray(codes),
+                                           force_interpret=True))
+        tt = TLS.tables_from_numpy(jt, "cpu")
+        fn = tops.make_network_fn(tt, n_in0=n_in, fused=False,
+                                  device="cpu")
+        assert fn.execution_plan.mode == "per_layer"
+        np.testing.assert_array_equal(fn(c).numpy(), want)
+        np.testing.assert_array_equal(tops.lut_network(tt, c).numpy(), want)
 
 
 def test_fused_geometry_refuses_what_does_not_fit():
