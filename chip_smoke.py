@@ -37,20 +37,32 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              chain of kernel-3 launches from one host call).  Launch counts are
              zeroed just before and read just after; every kernel must
              have launched.
-6. wkv     — the WKV6 kernel against its plain version
+6. fleet   — the serving fleet across processes: two worker processes
+             on the card (``LutFleet(transport="process")``) serve
+             HDR-Add2 from a saved artifact under 8000 Poisson requests
+             at 4000/s, during which a two-phase swap to a second seed
+             (its slab transfer to one worker corrupted in flight and
+             re-fetched) and a SIGKILL of the other worker land: 0
+             dropped, failed or hung, every answer equal to the plain
+             forward of its version, no microbatch mixing versions, and
+             kernel 1 launched in the surviving worker (counts zeroed in
+             the workers just before, read back over the wire after).
+             Prints p50/p99 latency, the swap's blackout and the counts.
+7. wkv     — the WKV6 kernel against its plain version
              (``wkv_chunked_ref`` at chunk 32, run on the card) at
              rwkv6-3b shapes: B=4 S=512 H=40 K=64 in
              bf16 and f32, one decode token (S=1) with a nonzero state, a
              ragged S=77, and every decay at the clamp (S=512; both must
              be finite); timed with CUDA events, on the device clock and
              queued, against the plain version and the bound.
-7. masked_mm — the masked-matmul kernel against both plain versions at
+8. masked_mm — the masked-matmul kernel against both plain versions at
              the kernels-bench layer (n_in 784, n_out 256, F 6) at
-             B=1024 and B=4096; timed (CUDA events, device clock)
-             against the plain gather, the dense ``torch.addmm`` form
-             (the library call) and the bound; then its entry point (``ops.masked_matmul``) once
-             at each batch, counts zeroed just before and read after.
-8. lm      — rwkv6-3b at full width (32 layers, d_model 2560, vocab
+             B=1024, 4096 and 16384 (past what the card holds resident);
+             timed (CUDA events, device clock, queued) against the plain
+             gather, the dense ``torch.addmm`` form (the library call)
+             and the bound; then its entry point (``ops.masked_matmul``)
+             once at each batch, counts zeroed just before and read after.
+9. lm      — rwkv6-3b at full width (32 layers, d_model 2560, vocab
              65536, bf16), weights from a fixed seed on the card, served
              through ``repro_torch.launch.serve``: a B=4 x 512-token
              prefill and 32 greedy decode steps, counts zeroed just
@@ -69,7 +81,9 @@ Output: a ``kernels`` JSON line (each kernel's ``ms`` by CUDA events
 and ``device_ms`` on the device clock, beside its bound, plain and
 library times, at the shape where its path launches it: the LUT kernels
 at HDR-Add2's 256-row micro-batch with int4 slabs, WKV6 at the prefill
-call), the ``nvidia-smi`` line, and as the last line
+call, the masked matmul at B=1024; ``launches`` counted over each
+kernel's paths, kernel 1's over the serve phase and, read back from the
+workers, the fleet phase), the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -273,8 +287,9 @@ def device_ms(fn, inputs, kernel: str = "", per_call=1, iters: int = 20,
         n = sum(n for _, n in hits)
         if n == iters * per_call if per_call is not None else n > 0:
             return sum(ms for ms, _ in hits) / iters
-        log(f"[trace] {kernel}: {n} of {iters * per_call} launches in the "
-            f"trace ({sum(k for _, k in per.values())} kernels of "
+        want = "any" if per_call is None else iters * per_call
+        log(f"[trace] {kernel or 'the call'}: {n} of {want} launches in "
+            f"the trace ({sum(k for _, k in per.values())} kernels of "
             f"{len(per)} names); tracing again")
     return None
 
@@ -382,7 +397,8 @@ def phase_build():
 def ptxas_registers(log: str) -> dict:
     """{kernel: (registers, spill store bytes, spill load bytes)} from
     nvcc's ``-Xptxas -v`` report, for each entry function (kernel),
-    named by its unmangled identifier."""
+    named by its unmangled identifier; a kernel compiled in several
+    instantiations reports the most any of them uses."""
     import re
     out, fn, props, props_of = {}, None, {}, None
     for line in log.splitlines():
@@ -408,7 +424,12 @@ def ptxas_registers(log: str) -> dict:
         m = re.match(r"_Z(\d+)(\w+)", mangled)
         return m.group(2)[:int(m.group(1))] if m else mangled
 
-    return {name(k): (r, *props.get(k, (0, 0))) for k, r in out.items()}
+    worst: dict = {}
+    for k, r in out.items():
+        row = (r, *props.get(k, (0, 0)))
+        prev = worst.get(name(k), (0, 0, 0))
+        worst[name(k)] = tuple(max(a, b) for a, b in zip(prev, row))
+    return worst
 
 
 def _engines(tables, n_in0):
@@ -695,6 +716,138 @@ def phase_serve(dev, results):
     return counts
 
 
+def phase_fleet(dev, results, n_req=8000, rate=4000.0):
+    """The serving fleet across processes: two worker processes on the
+    card (``LutFleet(transport="process")``, each its own CUDA context,
+    the kernels loaded from the library ``[build]`` made) serve
+    HDR-Add2 from a saved artifact under an open-loop Poisson stream.
+    During the stream: a two-phase swap to a second seeded version
+    whose slab transfer to r1 is corrupted in flight (refused by the
+    worker's re-hash, re-fetched), then a SIGKILL of r0.  Every request
+    must be answered (0 dropped, failed or hung), each answer equal bit
+    for bit to the plain forward of the version that answered, no
+    microbatch mixing versions, and kernel 1 launched in the surviving
+    worker (counts zeroed in the workers just before the stream and
+    read back over the wire just after)."""
+    import torch
+    from repro_torch.artifact import load_artifact, save_artifact
+    from repro_torch.configs import paper_models as PM
+    from repro_torch.kernels.lut_gather import ops, ref
+    from repro_torch.launch.batching import (latency_percentiles_ms,
+                                             replay_open_loop)
+    from repro_torch.launch.fleet import LutFleet
+
+    spec = PM.hdr_add2()
+    rng = np.random.default_rng(9)
+    rows = rng.integers(0, 4, (n_req, spec.in_features)).astype(np.int32)
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fleet-") as tmp:
+        paths, want = [], {}
+        for seed in (31, 32):
+            tables = random_tables(spec, seed, dev)
+            path = save_artifact(tmp, tables, name=f"hdr-add2-s{seed}",
+                                 spec=spec)
+            art = load_artifact(path, device=dev)
+            want[art.artifact_id] = ref.lut_network(
+                torch.from_numpy(rows).to(dev),
+                [a.plain() for a in ops._layer_args(art.tables, art.n_in)]
+            ).cpu().numpy()
+            paths.append(path)
+        tags = list(want)
+        with LutFleet(2, microbatch=256, deadline_s=2e-3,
+                      transport="process", device=str(dev),
+                      store_root=os.path.join(tmp, "fleet")) as fleet:
+            t_up = time.perf_counter() - t_start
+            fleet.distribute_artifact(paths[0], "hdr-add2")
+            log(f"[fleet] 2 workers up in {t_up:.2f} s (pids "
+                f"{[r.proc.pid for r in fleet.replicas]}), {spec.name} "
+                f"admitted {fleet.admitted_tags('hdr-add2')}")
+            handles: list = []
+            swap: dict = {}
+
+            def faults():
+                time.sleep(0.25)
+                fleet.inject_fetch_corruption("r1", n=1)
+                prepared = fleet.prepare_swap("hdr-add2", paths[1])
+                swap["dist"] = prepared.distribution
+                swap["report"] = fleet.commit_swap(prepared)
+                time.sleep(0.2)
+                swap["stream_running_at_kill"] = feeder.is_alive()
+                fleet.kill_replica("r0")              # SIGKILL mid-stream
+
+            feeder = threading.Thread(daemon=True, target=lambda: (
+                handles.extend(replay_open_loop(
+                    fleet.client("hdr-add2"), rows, rate=rate, seed=5,
+                    timeout_s=120.0))))
+            # ---- the fleet's path: counts zeroed in each worker just
+            # before, read back over the wire just after
+            fleet.launch_counts(reset=True)
+            feeder.start()
+            faults()
+            feeder.join(timeout=180.0)
+            check(not feeder.is_alive(), "[fleet] the stream hung")
+            counts = fleet.launch_counts()
+            # ----
+            stats = fleet.stats()
+            members = fleet.membership()
+    wall = time.perf_counter() - t_start
+    check(len(handles) == n_req, f"[fleet] {n_req - len(handles)} "
+          f"requests dropped at submit")
+    failed = sum(1 for h in handles if h is None or h.failed)
+    check(failed == 0, f"[fleet] {failed} of {n_req} requests failed")
+    by_tag = dict.fromkeys(tags, 0)
+    flush_tags: dict = {}
+    for i, h in enumerate(handles):
+        check(h.version_tag in by_tag, f"[fleet] request {i} answered by "
+              f"unknown tag {h.version_tag}")
+        check(np.array_equal(h.result(timeout=1.0),
+                             want[h.version_tag][i]),
+              f"[fleet] request {i} differs from the plain forward of "
+              f"{h.version_tag[:12]}")
+        by_tag[h.version_tag] += 1
+        flush_tags.setdefault(h.flush_key, set()).add(h.version_tag)
+    mixed = sum(1 for t in flush_tags.values() if len(t) > 1)
+    check(mixed == 0, f"[fleet] {mixed} microbatches mixed versions")
+    check(all(by_tag.values()), f"[fleet] the swap did not land "
+          f"mid-stream: {by_tag}")
+    rep, dist = swap["report"], swap["dist"]
+    check(rep.new_tag == tags[1] and not rep.not_cut,
+          f"[fleet] swap report {rep}")
+    check(dist["r1"].fetches == 2 and dist["r1"].verify_failures == 1,
+          f"[fleet] the corrupt transfer to r1 was not re-fetched: "
+          f"{dist['r1']}")
+    check(swap["stream_running_at_kill"], "[fleet] the SIGKILL landed "
+          "after the stream ended")
+    check(set(counts) == {"r1"} and not stats["r0"]["healthy"],
+          f"[fleet] survivors {sorted(counts)}, stats {stats}")
+    for rid, c in counts.items():
+        check(c["lut_network_fused"] > 0, f"[fleet] kernel 1 never "
+              f"launched in surviving worker {rid}: {c}")
+    retried = sum(h.retries for h in handles)
+    p50, p99 = latency_percentiles_ms(handles, qs=(50, 99))
+    log(f"[fleet] {n_req} requests at {rate:.0f}/s through 2 workers: 0 "
+        f"dropped, 0 failed, 0 hung, {retried} re-dispatched after the "
+        f"SIGKILL of r0; answers by version "
+        f"{[(k[:12], v) for k, v in by_tag.items()]}, bit for bit; "
+        f"{len(flush_tags)} microbatches, none mixed")
+    log(f"[fleet] latency p50 {p50:.3f} ms p99 {p99:.3f} ms; swap prepare "
+        f"{rep.prepare_s * 1e3:.1f} ms (r1 fetched "
+        f"{dist['r1'].fetches}x, {dist['r1'].verify_failures} refused), "
+        f"commit window {rep.commit_window_s * 1e3:.2f} ms, blackout "
+        f"{rep.max_blackout_s * 1e6:.1f} us; epoch {members['epoch']} "
+        f"({[e['event'] for e in members['events']]}); phase wall "
+        f"{wall:.1f} s")
+    log(f"[fleet] launches in the surviving worker: {counts}")
+    results["_fleet"] = dict(
+        requests=n_req, rate=rate, p50_ms=p50, p99_ms=p99, by_tag=by_tag,
+        retried=retried, swap_prepare_s=rep.prepare_s,
+        swap_commit_window_s=rep.commit_window_s,
+        swap_blackout_s=rep.max_blackout_s, worker_counts=counts,
+        epoch=members["epoch"], wall_s=wall)
+    return {k: sum(c.get(k, 0) for c in counts.values())
+            for k in LUT_KERNELS}
+
+
 def _rel_err(got, want):
     """(max |got - want|, that over max |want|), both as floats."""
     err = (got.float() - want.float()).abs().max().item()
@@ -820,26 +973,50 @@ def time_wkv(dev, results, B=4, S=512, H=40, K=64):
             f"{ms / bms:.1f}x the bound{rtxt}")
 
 
-def phase_masked_mm(dev, results, batches=(1024, 4096)):
+# the kernels-bench layer (784 -> 256, F 6) at a 1024-row batch, a
+# 4096-row one and a 16384-row training batch, the first past what the
+# card holds resident (its blocks walk several tiles through the ring)
+MM_LAYER = (784, 256, 6)
+MM_BATCHES = (1024, 4096, 16384)
+
+
+def mm_operands(dev, seed: int = 44):
+    """conn, w and bias of ``MM_LAYER``, drawn on the card from a seed."""
+    import torch
+    n_in, n_out, F = MM_LAYER
+    g = torch.Generator(device=dev).manual_seed(seed)
+    conn = torch.randint(0, n_in, (n_out, F), generator=g, device=dev,
+                         dtype=torch.int32)
+    w = torch.randn((n_out, F), generator=g, device=dev)
+    bias = torch.randn((n_out,), generator=g, device=dev)
+    return g, conn, w, bias
+
+
+def time_masked_mm(dev, results, batches=MM_BATCHES):
+    """Kernel 4 at ``MM_LAYER`` for each batch, through its entry point
+    (``ops.masked_matmul``, whatever tree's package is imported): held
+    against both plain versions first, then timed by CUDA events, the
+    profiler's device clock and ``queued_ms``, against the plain gather,
+    the dense ``torch.addmm`` form (the library call) and the bound
+    (counting only the columns ``conn`` reads).  Inputs rotate through
+    more than the 50 MB L2.  Keys ``masked_matmul_b<B>``; returns (the
+    largest error, one input a batch)."""
     import torch
     from repro_torch.kernels.masked_matmul import masked_matmul as MM
     from repro_torch.kernels.masked_matmul import ops, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the dense oracle
-    n_in, n_out, F = 784, 256, 6                    # kernels-bench layer
-    g = torch.Generator(device=dev).manual_seed(44)
-    conn = torch.randint(0, n_in, (n_out, F), generator=g, device=dev,
-                         dtype=torch.int32)
-    w = torch.randn((n_out, F), generator=g, device=dev)
-    bias = torch.randn((n_out,), generator=g, device=dev)
+    n_in, n_out, F = MM_LAYER
+    g, conn, w, bias = mm_operands(dev)
     dense = ref.dense_weights(conn, w, n_in)
     cols = int(torch.unique(conn).numel())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geometry = getattr(MM, "mm_geometry", None)
     max_abs = 0.0
     xs_of = {}
     for B in batches:
-        # rotating inputs, together larger than the 50 MB L2
         xs = [torch.randn((B, n_in), generator=g, device=dev)
-              for _ in range(-(-64 * 2 ** 20 // (4 * B * n_in)))]
+              for _ in range(max(2, -(-64 * 2 ** 20 // (4 * B * n_in))))]
         xs_of[B] = xs[0]
         got = ops.masked_matmul(xs[0], conn, w, bias)
         for form, want in (
@@ -855,29 +1032,48 @@ def phase_masked_mm(dev, results, batches=(1024, 4096)):
                 f"{'ok' if ok else 'FAIL'})")
             check(ok, f"[masked_mm] B={B}: kernel differs from the plain "
                   f"{form} form")
-        ms = time_ms(lambda x: ops.masked_matmul(x, conn, w, bias), xs)
+
+        def kernel(x):
+            return ops.masked_matmul(x, conn, w, bias)
+
+        ms = time_ms(kernel, xs)
+        dms = device_ms(kernel, xs, "masked_mm_kernel")
+        qms = queued_ms(kernel, xs)
         plain_ms = time_ms(lambda x: ref.masked_matmul(x, conn, w, bias),
                            xs, iters=20)
         library_ms = time_ms(lambda x: torch.addmm(bias, x, dense), xs)
-        dms = device_ms(lambda x: ops.masked_matmul(x, conn, w, bias), xs,
-                        "masked_mm_kernel")
         library_dms = device_ms(lambda x: torch.addmm(bias, x, dense), xs,
                                 per_call=None)
         nbytes = 4 * B * cols + 2 * 4 * n_out * F + 4 * n_out + \
             4 * B * n_out
         flops = 2 * B * n_out * F + B * n_out
         bms, by = bound_ms(nbytes, flops)
+        geo = None if geometry is None else geometry(B, sms, n_in, n_out, F)
         results[f"masked_matmul_b{B}"] = dict(
-            ms=ms, device_ms=dms, plain_ms=plain_ms, library_ms=library_ms,
-            library_device_ms=library_dms, bound_ms=bms,
-            bound_by=by, bytes=nbytes, flops=flops, columns_read=cols,
-            rows_per_block=MM.block_plan(n_in)[0])
-        log(f"[masked_mm] time B={B}: kernel {ms:.4f} ms (device "
-            f"{dms:.4f} ms), plain gather {plain_ms:.4f} ms, dense addmm "
-            f"(library) {library_ms:.4f} ms (device {library_dms:.4f} ms), "
-            f"bound {bms:.5f} ms ({by}: {nbytes} B for {cols} of {n_in} "
-            f"columns, {flops} flops), {ms / bms:.1f}x the bound "
-            f"({dms / bms:.1f}x on the device clock)")
+            ms=ms, device_ms=dms, queued_ms=qms, plain_ms=plain_ms,
+            library_ms=library_ms, library_device_ms=library_dms,
+            bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops,
+            columns_read=cols, batch=B,
+            geometry=None if geo is None else str(geo))
+        dtxt, ltxt = ("not measured" if t is None else f"{t:.4f} ms"
+                      for t in (dms, library_dms))
+        share = "" if dms is None else f", {bms / dms:.3f} of the bound " \
+            f"on the device clock"
+        log(f"[masked_mm] time B={B}: kernel {ms:.4f} ms (device {dtxt}, "
+            f"queued {qms:.4f} ms), plain gather {plain_ms:.4f} ms, dense "
+            f"addmm (library) {library_ms:.4f} ms (device {ltxt}), bound "
+            f"{bms:.5f} ms ({by}: {nbytes} B for "
+            f"{cols} of {n_in} columns, {flops} flops){share}; geometry "
+            f"{geo}")
+    return max_abs, xs_of
+
+
+def phase_masked_mm(dev, results, batches=MM_BATCHES):
+    import torch
+    from repro_torch.kernels.masked_matmul import masked_matmul as MM
+    from repro_torch.kernels.masked_matmul import ops
+
+    max_abs, xs_of = time_masked_mm(dev, results, batches)
     main = results[f"masked_matmul_b{batches[0]}"]
     results["masked_matmul"] = dict(
         ms=main["ms"], device_ms=main["device_ms"], plain_ms=main["plain_ms"],
@@ -886,6 +1082,7 @@ def phase_masked_mm(dev, results, batches=(1024, 4096)):
 
     # ---- its entry point (no caller in the package but the tests):
     # counts zeroed just before, read just after
+    _, conn, w, bias = mm_operands(dev)
     MM.reset_launch_counts()
     for x in xs_of.values():
         y = ops.masked_matmul(x, conn, w, bias)
@@ -1172,6 +1369,8 @@ def main() -> int:
     results = {}
     phase_width(dev, results)
     counts = dict(phase_serve(dev, results))
+    for name, n in phase_fleet(dev, results).items():
+        counts[name] += n
     phase_wkv(dev, results)
     counts.update(phase_masked_mm(dev, results))
     counts.update(phase_lm(dev, results))

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Time the LUT and WKV6 kernels of one source tree on a CUDA card, with
-the timers of ``chip_smoke.py``, so that two commits compare on one card.
+"""Time the LUT, WKV6 and masked-matmul kernels of one source tree on a
+CUDA card, with the timers of ``chip_smoke.py``, so that two commits
+compare on one card.
 
     python3 kernel_ab.py LABEL [--src DIR] [--one-thread-body]
 
 builds the kernel libraries of the ``repro_torch`` package under ``DIR``
-(default: this checkout's ``src/``), times its kernels as the ``[width]``
-and ``[wkv]`` phases of ``chip_smoke.py`` do (HDR-Add2 and JSC-XL-Add2 at
-B=4096 and 256 with uint8 and int4 slabs; WKV6 at rwkv6-3b's prefill call
-in bf16 and float32 and at a decode step), then the pipelined kernel
+(default: this checkout's ``src/``), times its kernels as the ``[width]``,
+``[wkv]`` and ``[masked_mm]`` phases of ``chip_smoke.py`` do (HDR-Add2 and
+JSC-XL-Add2 at B=4096 and 256 with uint8 and int4 slabs; WKV6 at
+rwkv6-3b's prefill call in bf16 and float32 and at a decode step; the
+masked matmul at 784 -> 256, F=6, B=1024, 4096 and 16384, through the
+tree's ``ops.masked_matmul``), then the pipelined kernel
 against the grid-mode one at batches past what the card holds a block
 for each (``LARGE_SHAPES``) and kernel 3 one layer at a time
 (``LAYER_SHAPES``), writes ``chiprun_out/times_LABEL.json`` and prints
@@ -39,10 +42,12 @@ times instead the pipelined kernel (rows x threads x tiles a block) and
 the per-layer chain (rows x threads x neuron splits, codes staged or
 read unstaged) at every geometry
 of a small grid, built here and launched through the package's launch
-helpers, against the one each picks, at HDR-Add2 and JSC-XL-Add2 widths
-(``chiprun_out/sweep_LABEL.json``; the card's time with the calls
-queued ahead, ``queued_ms``, each geometry first held bit for bit
-against the plain version).
+helpers, against the one each picks, at HDR-Add2 and JSC-XL-Add2 widths,
+and the masked matmul (rows a tile x tiles a block x ring stages) at
+its three batches (``chiprun_out/sweep_LABEL.json``; the card's time
+with the calls queued ahead, ``queued_ms``, each geometry first held
+against the plain version: bit for bit, and for the masked matmul
+within ``chip_smoke.MM_RTOL``/``MM_ATOL``).
 """
 from __future__ import annotations
 
@@ -99,6 +104,7 @@ def main(argv=None) -> int:
     results = {}
     CS.time_lut(dev, results, np.random.default_rng(2024))
     CS.time_wkv(dev, results)
+    CS.time_masked_mm(dev, results)
     time_large(dev, results)
     time_layers(dev, results)
     keep = ("ms", "device_ms", "queued_ms", "plain_ms", "bound_ms")
@@ -380,12 +386,81 @@ def sweep(dev, smi, label) -> int:
             CS.log(f"[sweep] {tag} {name}: default {default:.4f} ms; "
                    f"best " + "; ".join(f"{k} {ms:.4f}"
                                         for ms, k in ranked[:6]))
+    sweep_masked_mm(dev, out)
     os.makedirs(CS.OUT_DIR, exist_ok=True)
     with open(os.path.join(CS.OUT_DIR, f"sweep_{label}.json"), "w") as f:
         json.dump({"device": smi, "results": out}, f, indent=1,
                   default=str)
     print(json.dumps({"sweep": label, "device": smi}))
     return 0
+
+
+# kernel 4's sweep: rows a tile, tiles a block walks, ring stages
+MM_SWEEP_ROWS = (1, 2, 4, 8, 16)
+MM_SWEEP_TILES = (1, 2, 4, 8)
+MM_SWEEP_STAGES = (1, 2, 3, 4)
+
+
+def mm_at(MM, LG, B, n_sms, rows, tiles, stages):
+    """Kernel 4's launch at ``chip_smoke.MM_LAYER`` with ``rows``-row
+    tiles, each block walking ``tiles`` of them through ``stages``
+    stages, 256 threads; None where the ring does not fit."""
+    import chip_smoke as CS
+    n_in, n_out, F = CS.MM_LAYER
+    n_tiles = -(-B // rows)
+    grid = -(-n_tiles // tiles)
+    smem = MM.mm_smem_bytes(rows, n_in, stages)
+    if smem > MM.SMEM_BUDGET_BYTES or stages > tiles:
+        return None
+    res = min(MM._resident(256, smem, F), -(-grid // n_sms))
+    return MM.MMGeometry(rows=rows, threads=256, ntile=n_out, grid=grid,
+                         neuron_tiles=1, tiles=tiles, stages=stages,
+                         smem_bytes=smem, blocks_per_sm=res,
+                         carveout=LG._carveout(res, smem))
+
+
+def sweep_masked_mm(dev, out):
+    """Kernel 4 at ``chip_smoke.MM_BATCHES`` through every geometry of
+    the grid above (launched by ``masked_matmul._launch``), each held
+    against the plain gather first, beside the one ``mm_geometry``
+    picks; queued ms, the inputs rotating through more than the L2."""
+    import torch
+    import chip_smoke as CS
+    from repro_torch.kernels.lut_gather import lut_gather as LG
+    from repro_torch.kernels.masked_matmul import masked_matmul as MM
+    from repro_torch.kernels.masked_matmul import ref
+
+    n_in, n_out, F = CS.MM_LAYER
+    g, conn, w, bias = CS.mm_operands(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for B in CS.MM_BATCHES:
+        xs = [torch.randn((B, n_in), generator=g, device=dev)
+              for _ in range(max(2, -(-64 * 2 ** 20 // (4 * B * n_in))))]
+        want = ref.masked_matmul(xs[0], conn, w, bias)
+        picked = MM.mm_geometry(B, sms, n_in, n_out, F)
+        rows_ = []
+        for k in [None] + [(r, t, s) for r in MM_SWEEP_ROWS
+                           for t in MM_SWEEP_TILES
+                           for s in MM_SWEEP_STAGES]:
+            geo = picked if k is None else mm_at(MM, LG, B, sms, *k)
+            if geo is None:
+                continue
+
+            def fn(x, geo=geo):
+                return MM._launch(x, conn, w, bias, geo)
+
+            CS.check(torch.allclose(fn(xs[0]), want, rtol=CS.MM_RTOL,
+                                    atol=CS.MM_ATOL),
+                     f"[sweep] masked_mm B={B} {k} differs")
+            rows_.append((CS.queued_ms(fn, xs), k))
+        default = rows_[0][0]
+        ranked = sorted(rows_[1:], key=lambda x: x[0])
+        out[f"masked_matmul_b{B}"] = dict(default_ms=default, sweep=ranked,
+                                          picked=str(picked))
+        CS.log(f"[sweep] masked_mm B={B}: default ({picked.rows} rows, "
+               f"{picked.tiles} tiles, {picked.stages} stages) "
+               f"{default:.4f} ms; best (rows, tiles, stages) "
+               + "; ".join(f"{k} {ms:.4f}" for ms, k in ranked[:6]))
 
 
 if __name__ == "__main__":

@@ -260,12 +260,14 @@ def _check_codes(codes: torch.Tensor, n_in: int):
         raise ValueError("codes must be contiguous")
 
 
-def resident_blocks(threads: int, block_smem: int) -> int:
+def resident_blocks(threads: int, block_smem: int,
+                    regs_per_thread: int = MAX_REGS_PER_THREAD) -> int:
     """Blocks of ``threads`` threads and ``block_smem`` bytes of dynamic
     shared memory that one SM holds at once: the least of its thread,
-    register, shared-memory and block limits."""
+    register (at ``regs_per_thread``, a kernel's launch bound),
+    shared-memory and block limits."""
     return max(1, min(MAX_THREADS_PER_SM // threads,
-                      SM_REGISTERS // (MAX_REGS_PER_THREAD * threads),
+                      SM_REGISTERS // (regs_per_thread * threads),
                       SM_SMEM_BYTES // (block_smem + BLOCK_SMEM_RESERVED),
                       MAX_BLOCKS_PER_SM))
 

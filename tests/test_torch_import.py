@@ -32,3 +32,32 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 30, proc.stdout
+
+
+WORKER_PROBE = """
+import runpy, sys
+sys.argv = ["repro_torch.launch.worker", "--help"]
+try:
+    runpy.run_module("repro_torch.launch.worker", run_name="__main__")
+except SystemExit as e:
+    if e.code != 0:
+        raise
+import repro_torch.launch.fleet, repro_torch.launch.transport
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro")
+             or m.startswith(("jax.", "jaxlib.", "repro.")))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_fleet_modules_and_worker_cli_import_no_jax():
+    """The fleet's three modules, and a worker started as its own
+    program (``python -m repro_torch.launch.worker``, here with
+    ``--help``), load neither JAX nor anything of ``repro``."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", WORKER_PROBE], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "usage: repro_torch.launch.worker" in proc.stdout
+    assert proc.stdout.strip().endswith("[]"), proc.stdout

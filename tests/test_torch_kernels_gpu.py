@@ -164,6 +164,50 @@ def test_masked_matmul_kernel_matches_plain(cuda, B, n_in, n_out, F,
     torch.testing.assert_close(y[:, 2:], got[:, 2:], rtol=0, atol=0)
 
 
+# (B, n_in, n_out, offset, walks): ragged batches, rows not a multiple of
+# 4 floats, an x starting ``offset`` floats past a 16-byte boundary,
+# neuron counts off 32 and over one block, and batches past what the
+# card holds resident (``walks``: blocks walk more tiles than the ring
+# has stages, so stages are refilled)
+MM_CASES = [(37, 50, 19, 0, False), (1000, 37, 300, 1, False),
+            (16384, 784, 250, 0, True), (9000, 1001, 129, 1, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [1, 2, 6, 8, 12])
+@pytest.mark.parametrize("B,n_in,n_out,offset,walks", MM_CASES)
+def test_masked_matmul_kernel_geometries(cuda, B, n_in, n_out, offset,
+                                         walks, F):
+    """Kernel 4 against both plain versions at every compiled fan-in
+    (1-8) and the generic one (12), through the geometries above; an
+    index outside [0, n_in) makes NaN of its neuron's outputs only."""
+    from repro_torch.kernels.masked_matmul import masked_matmul as mm
+    from repro_torch.kernels.masked_matmul import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(B + n_in + F)
+    flat = torch.randn((B * n_in + offset,), generator=g, device=cuda)
+    x = flat[offset:].view(B, n_in)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4 * offset
+    conn = torch.randint(0, n_in, (n_out, F), generator=g, device=cuda,
+                         dtype=torch.int32)
+    w = torch.randn((n_out, F), generator=g, device=cuda)
+    b = torch.randn((n_out,), generator=g, device=cuda)
+    geo = mm.mm_geometry(B, torch.cuda.get_device_properties(
+        cuda).multi_processor_count, n_in, n_out, F)
+    assert (geo.tiles > geo.stages) == walks, geo
+    mm.reset_launch_counts()
+    got = mm.masked_matmul(x, conn, w, b)
+    for want in (ref.masked_matmul(x, conn, w, b),
+                 ref.masked_matmul_dense(x, conn, w, n_in, b)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert mm.launch_counts() == {"masked_matmul": 1}
+    bad = conn.clone()
+    bad[0, 0], bad[n_out - 1, F - 1] = n_in, -1
+    y = mm.masked_matmul(x, bad, w, b)
+    assert torch.isnan(y[:, 0]).all() and torch.isnan(y[:, -1]).all()
+    torch.testing.assert_close(y[:, 1:-1], got[:, 1:-1], rtol=0, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # kernel 1's instantiations, its generic path, and kernels 2-3 beside it
 # ---------------------------------------------------------------------------

@@ -63,3 +63,47 @@ def test_wrapper_refuses_out_of_range_conn_on_cpu():
         tc2[2, 1] = bad
         with pytest.raises(ValueError, match="outside"):
             tops.masked_matmul(tx, tc2, tw)
+
+
+# the card the geometry is planned for: an H100's SMs
+N_SMS = 132
+
+
+@pytest.mark.parametrize("n_in", [16, 37, 784, 4096])
+@pytest.mark.parametrize("B", [1, 7, 1024, 4096, 16384])
+def test_mm_geometry_fits_covers_every_row_once_in_one_wave(B, n_in):
+    """``mm_geometry`` (the kernel's launch, a pure function): its
+    shared-memory ledger fits the budget, its blocks' tiles cover every
+    batch row exactly once and its neuron tiles every neuron, and its
+    grid is at most one wave of the blocks the card holds resident."""
+    from repro_torch.kernels.lut_gather import lut_gather as LG
+    from repro_torch.kernels.masked_matmul import masked_matmul as MM
+
+    for n_out, F in ((256, 6), (300, 12), (19, 1), (129, 8)):
+        g = MM.mm_geometry(B, N_SMS, n_in, n_out, F)
+        assert 0 < g.smem_bytes <= MM.SMEM_BUDGET_BYTES
+        assert g.smem_bytes == MM.mm_smem_bytes(g.rows, n_in, g.stages)
+        assert 1 <= g.stages <= min(MM.MAX_STAGES, g.tiles)
+        assert g.ntile <= g.threads <= MM.MAX_THREADS
+        assert g.threads % 32 == 0
+        assert (g.neuron_tiles - 1) * g.ntile < n_out \
+            <= g.neuron_tiles * g.ntile
+        n_tiles = -(-B // g.rows)
+        seen = np.zeros(B, np.int64)
+        for b in range(g.grid):                  # block b's row tiles
+            walked = range(b, n_tiles, g.grid)
+            assert 0 < len(walked) <= g.tiles
+            for t in walked:
+                seen[t * g.rows:(t + 1) * g.rows] += 1
+        assert (seen == 1).all()
+        resident = LG.resident_blocks(
+            g.threads, g.smem_bytes, regs_per_thread=MM.regs_per_thread(F))
+        assert g.grid * g.neuron_tiles <= resident * N_SMS
+        assert g.blocks_per_sm <= resident
+
+
+def test_mm_geometry_reads_a_row_too_wide_for_shared_memory_unstaged():
+    from repro_torch.kernels.masked_matmul import masked_matmul as MM
+    g = MM.mm_geometry(5, N_SMS, 70000, 33, 4)
+    assert (g.stages, g.smem_bytes) == (0, 0)
+    assert g.grid * g.rows >= 5
