@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of the LUT-DNN serving path and the RWKV6
-language model.
+"""PyTorch + CUDA port of the LUT-DNN toolflow (QAT training, truth-table
+synthesis, artifacts, the LUT engine and its serving stack) and the
+RWKV6 language model.
 
 A second package beside ``repro`` (the JAX reference), laid out in the
 same way: ``repro_torch.<module>`` is the counterpart of
@@ -7,10 +8,11 @@ same way: ``repro_torch.<module>`` is the counterpart of
 nothing of the ``repro`` package; what it needs from framework-free
 ``repro`` modules it keeps as its own copy.
 
-Entry points (``artifact.load_artifact``, ``core.lut_synth.
+Entry points (``core.lutdnn.init_model`` / ``make_train_step``,
+``data.batch_iterator``, ``artifact.load_artifact``, ``core.lut_synth.
 tables_from_numpy``, ``kernels.lut_gather.ops.make_network_fn``,
 ``launch.registry.ModelRegistry``, ``launch.serve.init_lm`` /
-``serve_lm``) run on ``cuda`` unless the caller passes ``device="cpu"``;
+``serve_lm`` / ``serve_lut``) run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no such argument they raise (see
 ``repro_torch.device``).
 """

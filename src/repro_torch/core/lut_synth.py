@@ -1,5 +1,12 @@
-"""Synthesised LUT networks as data (port of the data half of
+"""Truth-table synthesis and synthesised LUT networks as data (port of
 ``repro.core.lut_synth``).
+
+Synthesis enumerates every (beta*F)-bit input combination of each
+sub-neuron (and every A*(beta+1)-bit combination of each adder), pushes
+them through the trained transfer function in eval mode, and stores the
+resulting output codes.  ``synthesise_layer`` calls the same
+``layers.subneuron_transfer`` as the QAT forward, so the two agree on
+whatever device they run on.
 
 A synthesised layer is three integer artefacts per neuron — ``conn``
 (which input codes feed each sub-neuron), ``sub_table`` (sub-neuron
@@ -9,9 +16,10 @@ wide each code is.  Inference is pure integer gather
 (``lut_layer_forward`` here, the CUDA kernels in
 ``repro_torch.kernels.lut_gather``).
 
-Synthesis itself (running a trained model over every input code) comes
-with the training port; until then tables arrive from an artifact
-(``repro_torch.artifact``) or from numpy arrays through
+Contract (tested): for any input, ``lut_forward(synthesise(model), x)``
+picks the argmax of the quantized forward ``lutdnn.forward(model, x)``,
+with logits within ``OUTPUT_QUANT.step``.  Tables also arrive from an
+artifact (``repro_torch.artifact``) or from numpy arrays through
 ``tables_from_numpy``.
 """
 from __future__ import annotations
@@ -22,8 +30,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.quant import QuantSpec
+from repro_torch.core import layers as L
+from repro_torch.core.quant import QuantSpec, bn_fold
 from repro_torch.device import DeviceLike, resolve_device
+
+# packed table addresses above this width get no routing matrix (the
+# reference's MATMUL_ROUTE_MAX_BITS, kernels/lut_gather/lut_gather.py)
+MATMUL_ROUTE_MAX_BITS = 20
 
 # the table dtypes synthesis emits, by numpy name
 TORCH_DTYPES = {"uint8": torch.uint8, "int32": torch.int32}
@@ -169,6 +182,122 @@ def unpack_tables_int4(tables: List[LayerTables]) -> List[LayerTables]:
 
 
 OUTPUT_QUANT = QuantSpec(bits=16, low=-8.0, high=8.0)
+
+
+# --------------------------------------------------------------------------
+# synthesis
+# --------------------------------------------------------------------------
+
+def routing_matrix(conn, in_bits: int, n_in: int) -> np.ndarray:
+    """The reference's routing matrix (a copy of its
+    ``kernels/lut_gather/lut_gather.routing_matrix``), as numpy:
+    W[i, n*A + a] = sum_f [conn[n, a, f] == i] * 2**(in_bits * f).  It
+    is part of an artifact's hashed content, so synthesis writes it;
+    the port never routes with it."""
+    conn_np = (conn.detach().cpu().numpy() if torch.is_tensor(conn)
+               else np.asarray(conn))
+    n_out, A, F = conn_np.shape
+    w = np.zeros((n_in, n_out * A), np.float32)
+    flat = conn_np.reshape(n_out * A, F)
+    cols = np.arange(n_out * A)
+    for f in range(F):
+        np.add.at(w, (flat[:, f], cols), float(1 << (in_bits * f)))
+    return w
+
+
+def _enum_codes(n_slots: int, bits: int) -> np.ndarray:
+    """All 2**(n_slots*bits) input-code tuples, shape (2**.., n_slots).
+
+    Slot 0 occupies the LOW bits of the packed index — this convention
+    must match the LUT kernels exactly.
+    """
+    total = 2 ** (n_slots * bits)
+    idx = np.arange(total, dtype=np.int64)
+    cols = [(idx >> (bits * i)) & ((1 << bits) - 1) for i in range(n_slots)]
+    return np.stack(cols, axis=1).astype(np.int32)
+
+
+def _logit_codes(z: torch.Tensor, oq: QuantSpec) -> torch.Tensor:
+    """Output layer: quantize raw BN output over a wide signed range so
+    argmax is preserved.  16-bit signed fixed point, range +-8."""
+    del oq
+    return OUTPUT_QUANT.to_code(OUTPUT_QUANT.clip(z))
+
+
+@torch.no_grad()
+def synthesise_layer(params: dict, conn: torch.Tensor, spec: L.LayerSpec,
+                     pack: bool = True, routing: bool = True
+                     ) -> LayerTables:
+    """One layer's truth tables, computed on the device of its
+    parameters."""
+    dev = conn.device
+    b_in = spec.in_quant.bits
+    combos = torch.from_numpy(_enum_codes(spec.fan_in, b_in)).to(dev)
+    vals = spec.in_quant.from_code(combos)                      # (K, F)
+
+    # sub-neuron transfer for every neuron and combo: (K, n_out, A)
+    x_f = vals[:, None, None, :].expand(
+        vals.shape[0], spec.n_out, spec.adder_width, spec.fan_in)
+    pre = L.subneuron_transfer(params, spec, x_f)               # (K, n_out, A)
+
+    bn = bn_fold(params["bn"])
+    sq = spec.sub_quant
+    oq = spec.out_quant
+
+    # the output layer emits wide 16-bit logit codes (see _logit_codes);
+    # hidden layers emit oq.bits-wide codes
+    out_code_bits = 16 if spec.is_output else oq.bits
+
+    if spec.adder_width > 1:
+        sub_dt = table_dtype_for(sq.bits) if pack else torch.int32
+        add_dt = table_dtype_for(out_code_bits) if pack else torch.int32
+        # sub-neuron LUT emits (beta+1)-bit codes of the quantized pre-sum
+        sub_codes = sq.to_code(pre)                             # (K, n_out, A)
+        sub_table = sub_codes.permute(1, 2, 0)                  # (n_out, A, K)
+        # adder LUT: enumerate A codes of (beta+1) bits
+        acombos = torch.from_numpy(
+            _enum_codes(spec.adder_width, sq.bits)).to(dev)
+        avals = sq.from_code(acombos)                           # (Ka, A)
+        s = torch.sum(avals, dim=-1)                            # (Ka,)
+        z = s[:, None] * bn.scale[None, :] + bn.offset[None, :]  # (Ka, n_out)
+        if spec.is_output:
+            out_codes = _logit_codes(z, oq)
+        else:
+            out_codes = oq.to_code(oq.clip(torch.relu(z)))
+        add_table = out_codes.T.to(add_dt).contiguous()         # (n_out, Ka)
+        sub_bits = sq.bits
+    else:
+        sub_dt = table_dtype_for(out_code_bits) if pack else torch.int32
+        z = pre[..., 0] * bn.scale[None, :] + bn.offset[None, :]  # (K, n_out)
+        if spec.is_output:
+            codes = _logit_codes(z, oq)
+        else:
+            codes = oq.to_code(oq.clip(torch.relu(z)))
+        sub_table = codes.T[:, None, :]                         # (n_out, 1, K)
+        add_table = torch.zeros((spec.n_out, 0), dtype=sub_dt, device=dev)
+        sub_bits = oq.bits
+
+    route = (torch.from_numpy(routing_matrix(conn, b_in, spec.n_in)).to(dev)
+             if routing and b_in * spec.fan_in <= MATMUL_ROUTE_MAX_BITS
+             else None)
+    return LayerTables(
+        conn=conn.to(torch.int32).contiguous(),
+        sub_table=sub_table.to(sub_dt).contiguous(),
+        add_table=add_table, in_bits=b_in, sub_bits=sub_bits,
+        out_bits=oq.bits, fan_in=spec.fan_in,
+        adder_width=spec.adder_width, is_output=spec.is_output,
+        out_quant=oq, sub_quant=sq, table_dtype=sub_dt, routing=route)
+
+
+def synthesise(model: dict, spec, pack: bool = True,
+               routing: bool = True) -> List[LayerTables]:
+    """Every layer's tables, on the model's device.  ``routing=False``
+    skips the per-layer routing matrix (an n_in*n_out*A float32 per
+    layer, written to artifacts only)."""
+    return [
+        synthesise_layer(p, c, s, pack=pack, routing=routing)
+        for p, c, s in zip(model["layers"], model["conn"], spec.layer_specs())
+    ]
 
 
 def network_table_bytes(tables: List[LayerTables]) -> int:

@@ -250,14 +250,21 @@ def _device_of(codes: torch.Tensor, tables: torch.device) -> torch.device:
     return tables
 
 
-def _check_codes(codes: torch.Tensor, n_in: int):
+def _codes_arg(codes: torch.Tensor, n_in: int) -> torch.Tensor:
+    """The one contract of every LUT wrapper's codes, checked before
+    the device branch, so the CPU (plain version) and the card (kernel)
+    accept and refuse the same input: (B, n_in) integer codes, cast to
+    contiguous int32 as the reference's dtype rules cast them.  A width
+    other than ``n_in`` raises ValueError and a float or bool dtype
+    TypeError on both branches — stricter than the reference, whose
+    engine ignores extra columns."""
     if codes.dim() != 2 or codes.shape[1] != n_in:
         raise ValueError(f"codes of shape {tuple(codes.shape)}, want "
                          f"(B, {n_in})")
-    if codes.dtype != torch.int32:
-        raise TypeError("codes must be int32")
-    if not codes.is_contiguous():
-        raise ValueError("codes must be contiguous")
+    if codes.dtype.is_floating_point or codes.dtype.is_complex \
+            or codes.dtype == torch.bool:
+        raise TypeError(f"codes must be integers, got {codes.dtype}")
+    return codes.to(torch.int32).contiguous()
 
 
 def resident_blocks(threads: int, block_smem: int,
@@ -384,11 +391,12 @@ def _launch_layers(codes: torch.Tensor, descs, n_layers: int, chain: tuple,
 
 
 def lut_gather(codes: torch.Tensor, layer: LayerArgs) -> torch.Tensor:
-    """codes (B, n_in) int32 -> (B, n_out) int32 through one layer."""
+    """codes (B, n_in) integers -> (B, n_out) int32 through one layer
+    (codes as ``_codes_arg`` takes them)."""
     dev = _device_of(codes, layer.conn.device)
+    codes = _codes_arg(codes, layer.n_in)
     if dev.type == "cpu":
         return ref.lut_layer(codes, *layer.plain())
-    _check_codes(codes, layer.n_in)
     g = layer_geometry(codes.shape[0], _sm_count(dev.index), layer.n_in,
                        layer.n_out)
     d = layer.desc()
@@ -638,12 +646,13 @@ class FusedNet:
 
 
 def lut_layers(codes: torch.Tensor, net: FusedNet) -> torch.Tensor:
-    """codes (B, n_in0) int32 -> (B, n_out_last) int32 through every
+    """codes (B, n_in0) integers -> (B, n_out_last) int32 through every
     layer of ``net`` by kernel 3, one launch a layer, all from one host
     call (the ``per_layer`` plan's forward)."""
-    if _device_of(codes, net.device).type == "cpu":
+    dev = _device_of(codes, net.device)
+    codes = _codes_arg(codes, net.n_in0)
+    if dev.type == "cpu":
         return ref.lut_network(codes, [a.plain() for a in net.layers])
-    _check_codes(codes, net.n_in0)
     return _launch_layers(codes, ctypes.addressof(net.host_desc),
                           len(net.layers), net.chain(codes.shape[0]),
                           net.widths, net.wp, net.wq)
@@ -652,13 +661,14 @@ def lut_layers(codes: torch.Tensor, net: FusedNet) -> torch.Tensor:
 def lut_network_fused(codes: torch.Tensor, net: FusedNet,
                       rows: Optional[int] = None, pipeline: bool = False,
                       max_rows: Optional[int] = None) -> torch.Tensor:
-    """codes (B, n_in0) int32 -> (B, n_out_last) int32 through every
-    layer of ``net`` in one launch.  The geometry comes from
+    """codes (B, n_in0) integers -> (B, n_out_last) int32 through every
+    layer of ``net`` in one launch (codes as ``_codes_arg`` takes them).  The geometry comes from
     ``fused_geometry`` for this batch, within ``max_rows`` and the
     ledger; ``rows`` forces the rows per block."""
-    if _device_of(codes, net.device).type == "cpu":
+    dev = _device_of(codes, net.device)
+    codes = _codes_arg(codes, net.n_in0)
+    if dev.type == "cpu":
         return ref.lut_network(codes, [a.plain() for a in net.layers])
-    _check_codes(codes, net.n_in0)
     return _launch_fused(codes, net, net.geometry(
         codes.shape[0], pipeline, max_rows=max_rows, rows=rows))
 

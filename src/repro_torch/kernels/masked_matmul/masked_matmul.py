@@ -169,18 +169,32 @@ def mm_geometry(B: int, n_sms: int, n_in: int, n_out: int,
 
 def masked_matmul(x: torch.Tensor, conn: torch.Tensor, w: torch.Tensor,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x: (B, n_in); conn: (n_out, F) int32; w: (n_out, F); bias:
+    """x: (B, n_in); conn: (n_out, F) integers; w: (n_out, F); bias:
     (n_out,) or None.  Returns (B, n_out) float32.
 
-    A fan-in index outside [0, n_in) raises ValueError for CPU tensors;
-    on the card the kernel checks each index as it loads it and makes
-    that output NaN, with no read outside x and no host sync."""
+    One contract on both branches, checked before the device branch:
+    the shapes above (ValueError otherwise), ``conn`` of an integer
+    dtype cast to int32 as the reference's dtype rules cast it (a float
+    ``conn`` raises TypeError).  A fan-in index outside [0, n_in) raises
+    ValueError for CPU tensors; on the card the kernel checks each index
+    as it loads it and makes that output NaN, with no read outside x and
+    no host sync."""
     dev = x.device
     for name, t in (("conn", conn), ("w", w), ("bias", bias)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} on {t.device}, x on {dev}")
+    if x.dim() != 2 or conn.dim() != 2 or w.shape != conn.shape:
+        raise ValueError("want x (B, n_in), conn and w (n_out, F)")
+    B, n_in = x.shape
+    n_out, F = conn.shape
+    if bias is not None and tuple(bias.shape) != (n_out,):
+        raise ValueError(f"bias of shape {tuple(bias.shape)}, want "
+                         f"{(n_out,)}")
+    if conn.dtype.is_floating_point or conn.dtype.is_complex \
+            or conn.dtype == torch.bool:
+        raise TypeError(f"conn must be integers, got {conn.dtype}")
+    conn = conn.to(torch.int32)
     if dev.type == "cpu":
-        n_in = x.shape[-1]
         if conn.numel() and (int(conn.min()) < 0
                              or int(conn.max()) >= n_in):
             raise ValueError(f"conn indexes outside [0, {n_in})")
@@ -189,15 +203,6 @@ def masked_matmul(x: torch.Tensor, conn: torch.Tensor, w: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"no masked-matmul kernel for device {dev}")
 
-    if x.dim() != 2 or conn.dim() != 2 or w.shape != conn.shape:
-        raise ValueError("want x (B, n_in), conn and w (n_out, F)")
-    B, n_in = x.shape
-    n_out, F = conn.shape
-    if bias is not None and tuple(bias.shape) != (n_out,):
-        raise ValueError(f"bias of shape {tuple(bias.shape)}, want "
-                         f"{(n_out,)}")
-    if conn.dtype != torch.int32:
-        raise TypeError("conn must be int32")
     if B == 0 or n_out == 0:
         return torch.empty((B, n_out), dtype=torch.float32, device=dev)
     if n_in == 0:

@@ -31,7 +31,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 30, proc.stdout
+    assert n_modules >= 36, proc.stdout
 
 
 WORKER_PROBE = """
@@ -60,4 +60,35 @@ def test_fleet_modules_and_worker_cli_import_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "usage: repro_torch.launch.worker" in proc.stdout
+    assert proc.stdout.strip().endswith("[]"), proc.stdout
+
+
+SERVE_PROBE = """
+import runpy, sys
+sys.argv = ["repro_torch.launch.serve", "--lut", "--help"]
+try:
+    runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+except SystemExit as e:
+    if e.code != 0:
+        raise
+import repro_torch.core.lut_synth, repro_torch.core.lutdnn
+import repro_torch.core.poly, repro_torch.data, repro_torch.optim
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro")
+             or m.startswith(("jax.", "jaxlib.", "repro.")))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_train_synth_modules_and_serve_lut_cli_import_no_jax():
+    """The training and synthesis modules (``core.poly``, ``core.lutdnn``,
+    ``core.lut_synth``, ``optim``, ``data``), and the LUT serving CLI
+    started as its own program (``python -m repro_torch.launch.serve
+    --lut --help``), load neither JAX nor anything of ``repro``."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", SERVE_PROBE], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "--save-artifact" in proc.stdout
     assert proc.stdout.strip().endswith("[]"), proc.stdout

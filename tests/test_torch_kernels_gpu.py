@@ -87,8 +87,68 @@ def test_wrapper_refuses_mismatched_devices(cuda):
     fn = ops.make_network_fn(art, device=cuda)
     with pytest.raises(ValueError):
         fn(torch.zeros((4, art.n_in), dtype=torch.int32))   # CPU codes
+    # int64 codes on the card are cast to int32, as on the CPU
+    # (test_wrapper_contract)
+    codes = torch.ones((4, art.n_in), dtype=torch.int64, device=cuda)
+    assert torch.equal(fn(codes), fn(codes.int()))
+
+
+def _contract_cases(wrapper, dev):
+    """(call, good int32 input, the same input as int64, inputs of a
+    wrong width, a float input) for one wrapper on ``dev``."""
+    from repro_torch.artifact import load_artifact
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    from repro_torch.kernels.lut_gather import ops
+    from repro_torch.kernels.masked_matmul import masked_matmul as MM
+    rng = np.random.default_rng(5)
+    if wrapper == "masked_matmul":
+        x = torch.from_numpy(rng.standard_normal((8, 10)).astype(
+            np.float32)).to(dev)
+        w = torch.from_numpy(rng.standard_normal((3, 2)).astype(
+            np.float32)).to(dev)
+        conn = torch.from_numpy(rng.integers(0, 10, (3, 2)).astype(
+            np.int32)).to(dev)
+        return (lambda c: MM.masked_matmul(x, c, w), conn, conn.long(),
+                [conn[:, :1].contiguous(), conn.reshape(-1)],
+                conn.float())
+    art = load_artifact(str(GOLDEN), device=dev)
+    args = ops._layer_args(art.tables, art.n_in, check_conn=True)
+    net = K.FusedNet(args)
+    call = {"lut_gather": lambda c: K.lut_gather(c, args[0]),
+            "lut_layers": lambda c: K.lut_layers(c, net),
+            "lut_network_fused": lambda c: K.lut_network_fused(c, net)
+            }[wrapper]
+    codes = torch.from_numpy(rng.integers(0, 4, (8, art.n_in)).astype(
+        np.int32)).to(dev)
+    wide = torch.zeros((8, art.n_in + 3), dtype=torch.int32, device=dev)
+    return (call, codes, codes.long(),
+            [wide, codes[:, :-1].contiguous(), codes[0]], codes.float())
+
+
+@pytest.mark.parametrize("wrapper", ["lut_gather", "lut_layers",
+                                     "lut_network_fused", "masked_matmul"])
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_wrapper_contract(device, wrapper, request):
+    """One contract for a wrapper's integer input (LUT codes, the
+    masked matmul's conn) on both branches, checked before the device
+    branch: int64 is cast to int32 and answers as int32 does, a
+    non-contiguous view answers as its copy does, a wrong width raises
+    ValueError and a float dtype TypeError."""
+    dev = (request.getfixturevalue("cuda") if device == "cuda"
+           else torch.device("cpu"))
+    call, good, as_int64, wrong_width, as_float = _contract_cases(
+        wrapper, dev)
+    want = call(good)
+    assert torch.equal(call(as_int64), want)
+    strided = good.t().contiguous().t()
+    assert not strided.is_contiguous() or good.shape[0] == 1
+    assert torch.equal(call(strided), want)
+    for bad in wrong_width:
+        with pytest.raises(ValueError):
+            call(bad)
     with pytest.raises(TypeError):
-        fn(torch.zeros((4, art.n_in), dtype=torch.int64, device=cuda))
+        call(as_float)
 
 
 def _wkv_inputs(B, S, H, K, dtype, cuda, seed, clamp=False):
