@@ -18,6 +18,19 @@ compare.  ``--jax-init`` draws the start with ``jax.random`` instead
 also trains the port on the CPU from the same start.
 
     PYTHONPATH=src:. JAX_PLATFORMS=cpu python aref_hdr_add2.py --seeds 0 1
+
+``--search`` runs the protocol of ``chip_smoke.py``'s ``[search]``
+phase with the JAX package instead: a 4-member
+``search_connectivity_population`` by ``jax.random`` (key 3, 100 steps
+of batch 256 in batch order 3, ``phase_frac`` 0.6, ``eps2`` 2e-3, lr
+0.15, the reference's paper-scale MNIST protocol), the best member by
+``select_best_masks``, its masks through ``masks_to_conn``, then the
+``[train]`` recipe from each of the port's starts with that
+connectivity in place of the start's random one.  It prints each
+start's searched and random accuracy and their means: the searched
+mean is ``chip_smoke.A_REF_SEARCH``.
+
+    PYTHONPATH=src:. JAX_PLATFORMS=cpu python aref_hdr_add2.py --search
 """
 import argparse
 import json
@@ -47,8 +60,24 @@ def port_init(seed: int):
     return TLD.model_to_numpy(model), chip_smoke.init_checksum(model)
 
 
+SEARCH = dict(n_steps=100, n_seeds=4, phase_frac=0.6, eps2=2e-3, lr=0.15)
+SEARCH_SEED = 3
+
+
+def search_conn(data, batch: int):
+    """The [search] protocol's population search by the JAX package ->
+    (the best member's conn as numpy arrays, member scores, best)."""
+    spec = PM.hdr_add2()
+    it = batch_iterator(data["train"], batch, seed=SEARCH_SEED)
+    masks, scores, _, _ = LD.search_connectivity_population(
+        jax.random.key(SEARCH_SEED), spec, it, **SEARCH)
+    best_masks, best = LD.select_best_masks(masks, scores)
+    conn = [np.asarray(c) for c in LD.masks_to_conn(best_masks, spec)]
+    return conn, [float(s) for s in np.asarray(scores)], best
+
+
 def run(seed: int, steps: int, lr: float, batch: int, jax_init: bool,
-        port: bool) -> dict:
+        port: bool, conn=None) -> dict:
     data = train_test_split(make_dataset("mnist", 12000, seed=0))
     spec = PM.hdr_add2()
     init_state, step = LD.make_train_step(spec, lr=lr)
@@ -57,6 +86,8 @@ def run(seed: int, steps: int, lr: float, batch: int, jax_init: bool,
         state = init_state(jax.random.key(seed))
     else:
         tree, out["init_checksum"] = port_init(seed)
+        if conn is not None:
+            tree["conn"] = conn
         model = jax.tree.map(jnp.asarray, tree)
         state = {"model": model, "opt": adamw(lr)[0](model["layers"])}
     jstep = jax.jit(step)
@@ -94,7 +125,28 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--jax-init", action="store_true")
     ap.add_argument("--port", action="store_true")
+    ap.add_argument("--search", action="store_true")
     args = ap.parse_args()
+    if args.search:
+        t0 = time.perf_counter()
+        data = train_test_split(make_dataset("mnist", 12000, seed=0))
+        conn, scores, best = search_conn(data, args.batch)
+        print(f"search: member scores {scores}, best {best} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        arms = {"searched": {}, "random": {}}
+        for s in args.seeds:
+            for arm, c in (("searched", conn), ("random", None)):
+                arms[arm][s] = run(s, args.steps, args.lr, args.batch,
+                                   False, False, conn=c)["jax"]
+                print(f"seed {s} {arm}: {arms[arm][s]:.7f}", flush=True)
+        means = {a: float(np.mean(list(r.values()))) for a, r in
+                 arms.items()}
+        print(json.dumps({"search": SEARCH, "scores": scores, "best": best,
+                          "runs": arms, "A_REF_SEARCH": means["searched"],
+                          "random_mean": means["random"],
+                          "searched_minus_random":
+                              means["searched"] - means["random"]}))
+        return
     runs = {}
     for s in args.seeds:
         t0 = time.perf_counter()

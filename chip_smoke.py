@@ -63,21 +63,35 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              before and read after: 0 failed, 0 dropped, kernel 1
              launched); then ``serve --lut --save-artifact`` trains the
              tiny jsc model from scratch on the card.
-8. wkv     — the WKV6 kernel against its plain version
+8. search  — the SparseLUT toolflow at HDR-Add2's published widths:
+             a 4-member ``search_connectivity_population`` (100 steps,
+             B=256, phase_frac 0.6, eps2 2e-3, lr 0.15; each member
+             from ``init_search_model`` on a CPU generator, digests
+             checked), after its first 5 steps were held against the
+             CPU path from the same start and draws (equal active sets,
+             theta within 1e-5; no TF32); exactly 8 actives a neuron in
+             every layer of every member, ``fan_in_violation <= 0``
+             after the ramp; ms a step, kernels a step and idle share;
+             the best member's masks through ``masks_to_conn``, retrained
+             from ``[train]``'s two starts (mean accuracy >=
+             A_REF_SEARCH - 0.05, and >= ``[train]``'s random mean -
+             0.01), synthesised, saved with ``search_provenance`` in the
+             manifest and served by ``serve --lut`` (kernel 1 counted).
+9. wkv     — the WKV6 kernel against its plain version
              (``wkv_chunked_ref`` at chunk 32, run on the card) at
              rwkv6-3b shapes: B=4 S=512 H=40 K=64 in
              bf16 and f32, one decode token (S=1) with a nonzero state, a
              ragged S=77, and every decay at the clamp (S=512; both must
              be finite); timed with CUDA events, on the device clock and
              queued, against the plain version and the bound.
-9. masked_mm — the masked-matmul kernel against both plain versions at
+10. masked_mm — the masked-matmul kernel against both plain versions at
              the kernels-bench layer (n_in 784, n_out 256, F 6) at
              B=1024, 4096 and 16384 (past what the card holds resident);
              timed (CUDA events, device clock, queued) against the plain
              gather, the dense ``torch.addmm`` form (the library call)
              and the bound; then its entry point (``ops.masked_matmul``)
              once at each batch, counts zeroed just before and read after.
-10. lm     — rwkv6-3b at full width (32 layers, d_model 2560, vocab
+11. lm     — rwkv6-3b at full width (32 layers, d_model 2560, vocab
              65536, bf16), weights from a fixed seed on the card, served
              through ``repro_torch.launch.serve``: a B=4 x 512-token
              prefill and 32 greedy decode steps, counts zeroed just
@@ -98,12 +112,14 @@ library times, at the shape where its path launches it: the LUT kernels
 at HDR-Add2's 256-row micro-batch with int4 slabs, WKV6 at the prefill
 call, the masked matmul at B=1024; ``launches`` counted over each
 kernel's paths, kernel 1's over the serve phase, the fleet phase (read
-back from the workers) and the train phase's ``serve --lut``), the ``nvidia-smi`` line, and as the last line
+back from the workers) and the train and search phases' ``serve
+--lut``), the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -879,6 +895,15 @@ INIT_CHECKSUMS = {0: "b7363638bdfa469b", 1: "9ec5a96cf19ed817"}
 TRAIN_STEPS, TRAIN_LR, TRAIN_BATCH = 250, 5e-3, 256
 
 
+@functools.lru_cache(maxsize=1)
+def mnist_split(n_samples: int):
+    """The procedural MNIST of ``[train]`` and ``[search]``
+    (``make_dataset("mnist", n_samples, seed=0)``, split 80/20)."""
+    from repro_torch.data.loader import train_test_split
+    from repro_torch.data.synthetic import make_dataset
+    return train_test_split(make_dataset("mnist", n_samples, seed=0))
+
+
 def init_checksum(model) -> str:
     """A digest of a model's parameters and connectivity (their bytes
     on the CPU, leaf by leaf): equal digests mean the same start."""
@@ -891,16 +916,26 @@ def init_checksum(model) -> str:
 
 def _code_disagreements(model, spec, tables, x):
     """Run the QAT eval forward layer by layer on the LUT path's own
-    input codes -> (sub-neuron codes, layer-output codes) where the
-    forward and the tables disagree, and how many of each there are."""
+    input codes and count the sub-neuron and layer-output codes where it
+    and the tables disagree.  A layer-output code is a rounding of
+    z = BN(sum of the quantized sub-neuron values): the forward computes
+    z from the straight-through ``quantize`` values with BN as written,
+    the tables from the grid values with BN folded to (scale, offset),
+    and the two float32 results can fall on either side of a rounding
+    boundary of the output quantizer.  So the layer-output codes are
+    recomputed with the tables' own arithmetic, and each disagreement is
+    measured: how far the forward's value lies from the boundary and how
+    far the two z lie apart, in quantizer steps.  -> dict of counts and
+    those measures."""
     import torch
     from repro_torch.core import layers as L
     from repro_torch.core import lut_synth as LS
-    from repro_torch.core.quant import bn_apply_eval
+    from repro_torch.core.quant import bn_apply_eval, bn_fold
 
     fq = spec.layer_specs()[0].in_quant
     codes = fq.to_code(fq.clip(x))
-    sub_bad = sub_all = out_bad = out_all = 0
+    out = dict(sub_bad=0, sub_all=0, out_bad=0, out_all=0, by_layer=[],
+               neurons=0, tab_bad=0, boundary_steps=0.0, z_gap_steps=0.0)
     with torch.no_grad():
         for p, c, s, t in zip(model["layers"], model["conn"],
                               spec.layer_specs(), tables):
@@ -909,18 +944,158 @@ def _code_disagreements(model, spec, tables, x):
             idx = LS.pack_index(codes[:, t.conn.long()], t.in_bits)
             sub = LS._gather_tables(t.sub_table, idx)        # (B, n, A)
             lut_out = LS.lut_layer_forward(t, codes)
+            bn = bn_fold(p["bn"])
             if s.adder_width > 1:
-                sub_bad += int((s.sub_quant.to_code(pre) != sub).sum())
-                sub_all += sub.numel()
+                out["sub_bad"] += int((s.sub_quant.to_code(pre) != sub).sum())
+                out["sub_all"] += sub.numel()
                 z = bn_apply_eval(p["bn"], s.sub_quant.quantize(pre).sum(-1))
+                z_tab = (s.sub_quant.from_code(sub).sum(-1) * bn.scale
+                         + bn.offset)
             else:
                 z = bn_apply_eval(p["bn"], pre[..., 0])
-            want = (LS.OUTPUT_QUANT.to_code(z) if s.is_output else
-                    s.out_quant.to_code(torch.relu(z)))
-            out_bad += int((want != lut_out).sum())
-            out_all += lut_out.numel()
+                z_tab = pre[..., 0] * bn.scale + bn.offset
+            q = LS.OUTPUT_QUANT if s.is_output else s.out_quant
+            if not s.is_output:
+                z, z_tab = torch.relu(z), torch.relu(z_tab)
+            bad = q.to_code(z) != lut_out
+            out["tab_bad"] += int((q.to_code(z_tab) != lut_out).sum())
+            out["by_layer"].append(int(bad.sum()))
+            out["out_bad"] += int(bad.sum())
+            out["out_all"] += lut_out.numel()
+            if bad.any():
+                pos = (q.clip(z) - q.low) / q.step
+                edge = (pos - torch.floor(pos) - 0.5).abs()
+                gap = (z - z_tab).abs() / q.step
+                out["neurons"] += int(bad.any(0).sum())
+                out["boundary_steps"] = max(out["boundary_steps"],
+                                            float(edge[bad].max()))
+                out["z_gap_steps"] = max(out["z_gap_steps"],
+                                         float(gap[bad].max()))
             codes = lut_out
-    return sub_bad, sub_all, out_bad, out_all
+    return out
+
+
+def synth_check(tag, model, spec, test, dev):
+    """``synthesise`` a QAT model on the card -> (tables, their logits
+    on the test split, stats).  Checks: ``lut_forward`` of the tables
+    picks the QAT eval forward's argmax on every test sample, logits
+    within ``OUTPUT_QUANT.step`` (the codes where forward and tables
+    disagree are counted and measured), every layer-output code equal
+    to the tables' own arithmetic recomputed on the test split; kernel 1
+    through ``make_network_fn``'s default plan equals the plain codes
+    bit for bit at the test split's size and at B=256."""
+    import torch
+    from repro_torch.core import lut_synth as LS
+    from repro_torch.core import lutdnn as LD
+    from repro_torch.kernels.lut_gather import ops
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tables = LS.synthesise(model, spec)
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t0
+    fq = spec.layer_specs()[0].in_quant
+    with torch.no_grad():
+        net, _ = LD.forward(model, spec, test["x"])
+    lut = LS.lut_forward(tables, test["x"], fq)
+    agree = int((torch.argmax(net, -1) == torch.argmax(lut, -1)).sum())
+    logit_err = (net - lut).abs().max().item()
+    lut_acc = float((torch.argmax(lut, -1) == test["y"].long())
+                    .float().mean())
+    dis = _code_disagreements(model, spec, tables, test["x"])
+    n_test = test["x"].shape[0]
+    log(f"{tag} synthesise on the card: {synth_s:.3f} s; lut_forward vs "
+        f"QAT forward on {n_test} test samples: argmax agree {agree}, "
+        f"max logit difference {logit_err:.3e} (step "
+        f"{LS.OUTPUT_QUANT.step:.3e}); codes disagreeing: sub-neuron "
+        f"{dis['sub_bad']} of {dis['sub_all']}, layer outputs "
+        f"{dis['out_bad']} of {dis['out_all']} (by layer "
+        f"{dis['by_layer']}, in {dis['neurons']} neurons; the forward's "
+        f"value at most {dis['boundary_steps']:.3e} steps from a rounding "
+        f"boundary, the forward's and the tables' z at most "
+        f"{dis['z_gap_steps']:.3e} steps apart; recomputed with the "
+        f"tables' folded-BN arithmetic: {dis['tab_bad']}); LUT accuracy "
+        f"{lut_acc:.4f}")
+    check(agree == n_test, f"{tag} argmax differs on {n_test - agree} "
+          f"test samples")
+    check(logit_err <= LS.OUTPUT_QUANT.step + 1e-6,
+          f"{tag} logits differ by {logit_err}")
+    check(dis["tab_bad"] == 0, f"{tag} {dis['tab_bad']} layer-output codes "
+          f"of the tables differ from the tables' own arithmetic")
+    codes = fq.to_code(fq.clip(test["x"]))
+    plain = codes
+    for t in tables:
+        plain = LS.lut_layer_forward(t, plain)
+    fn = ops.make_network_fn(tables, device=dev)
+    plan = fn.execution_plan
+    check(plan.mode == "fused" and not plan.pipeline,
+          f"{tag} default plan {plan.describe()} is not kernel 1")
+    for B in (n_test, 256):
+        check(torch.equal(fn(codes[:B]), plain[:B]),
+              f"{tag} kernel 1 differs from plain lut_forward at B={B}")
+    log(f"{tag} kernel 1 ({plan.describe()}) == plain lut_forward bit "
+        f"for bit at B={n_test} and B=256")
+    return tables, lut, dict(
+        synth_s=synth_s, lut_accuracy=lut_acc, argmax_agree=agree,
+        n_test=n_test, logit_err=logit_err,
+        sub_codes_disagree=dis["sub_bad"], sub_codes=dis["sub_all"],
+        out_codes_disagree=dis["out_bad"], out_codes=dis["out_all"],
+        out_codes_disagree_by_layer=dis["by_layer"],
+        out_codes_disagree_neurons=dis["neurons"],
+        out_codes_disagree_table_arith=dis["tab_bad"],
+        out_codes_disagree_boundary_steps=dis["boundary_steps"],
+        out_codes_disagree_z_gap_steps=dis["z_gap_steps"])
+
+
+def serve_check(tag, dev, d, tables, spec, data, lut, provenance,
+                search=None, n_req=2000):
+    """Save the tables as an artifact under ``d`` (int4) and serve it by
+    ``serve --lut --artifact-dir d --device cuda`` in-process: a cold
+    load, ``n_req`` requests through the registry at 4000/s.  Checks 0
+    failed, 0 dropped, the served accuracy equal to the tables' own on
+    the same requests, and kernel 1 launched, its count zeroed just
+    before and read just after.  -> (result, counts, artifact path)"""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.artifact import save_artifact
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    from repro_torch.launch import serve
+
+    fq = spec.layer_specs()[0].in_quant
+    idx, _ = serve.request_codes(fq, data, n_req)
+    want_acc = float((torch.argmax(lut, -1).cpu().numpy()[idx]
+                      == data["test"]["y"][idx]).mean())
+    path = save_artifact(d, tables, name="hdr-add2", spec=spec,
+                         provenance=provenance, search=search)
+    out = io.StringIO()
+    # ---- the main path: counts zeroed just before, read just after
+    K.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        res = serve.main(["--lut", "--artifact-dir", d, "--device",
+                          str(dev), "--requests", str(n_req), "--rate",
+                          "4000", "--microbatch", "256"])
+    counts = K.launch_counts()
+    # ----
+    text = out.getvalue()
+    log("\n".join(f"{tag} serve: {ln}" for ln in text.splitlines()))
+    check("lut-serve[artifact]" in text and res.origin == "artifact",
+          f"{tag} serve --lut did not cold-load the artifact")
+    check(res.failed == 0 and res.dropped == 0 and res.served == n_req,
+          f"{tag} {res.failed} failed, {res.dropped} dropped of {n_req}")
+    check(res.accuracy == want_acc, f"{tag} served accuracy "
+          f"{res.accuracy} != the tables' {want_acc} on those requests")
+    check(counts["lut_network_fused"] > 0,
+          f"{tag} serve --lut never launched kernel 1")
+    log(f"{tag} served {os.path.basename(path)}: {n_req} requests, 0 "
+        f"failed, 0 dropped, accuracy {res.accuracy:.4f} (the tables' "
+        f"own on those rows {want_acc:.4f}), p50 {res.p50_ms:.3f} ms "
+        f"p99 {res.p99_ms:.3f} ms, {len(res.flush_ms)} flushes, engine "
+        f"ms a flush mean {res.engine_ms:.3f} p50 "
+        f"{np.median(res.flush_ms):.3f} max {max(res.flush_ms):.3f}; "
+        f"launches {counts}")
+    return res, counts, path
 
 
 def phase_train(dev, results, steps=TRAIN_STEPS, n_samples=12000):
@@ -944,20 +1119,14 @@ def phase_train(dev, results, steps=TRAIN_STEPS, n_samples=12000):
     import io
 
     import torch
-    from repro_torch.artifact import save_artifact
     from repro_torch.configs import paper_models as PM
-    from repro_torch.core import lut_synth as LS
     from repro_torch.core import lutdnn as LD
-    from repro_torch.data.loader import (batch_iterator, to_device,
-                                         train_test_split)
-    from repro_torch.data.synthetic import make_dataset
-    from repro_torch.kernels.lut_gather import lut_gather as K
-    from repro_torch.kernels.lut_gather import ops
+    from repro_torch.data.loader import batch_iterator, to_device
     from repro_torch.launch import serve
 
     t_phase = time.perf_counter()
     spec = PM.hdr_add2()
-    data = train_test_split(make_dataset("mnist", n_samples, seed=0))
+    data = mnist_split(n_samples)
     test = to_device(data["test"], dev)
     init_state, step = LD.make_train_step(spec, lr=TRAIN_LR)
     eval_step = LD.make_eval_step(spec)
@@ -1022,84 +1191,15 @@ def phase_train(dev, results, steps=TRAIN_STEPS, n_samples=12000):
     model = models[0]
 
     # (2) synthesise on the card, then the contract and kernel 1
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tables = LS.synthesise(model, spec)
-    torch.cuda.synchronize()
-    synth_s = time.perf_counter() - t0
-    fq = spec.layer_specs()[0].in_quant
-    with torch.no_grad():
-        net, _ = LD.forward(model, spec, test["x"])
-    lut = LS.lut_forward(tables, test["x"], fq)
-    agree = int((torch.argmax(net, -1) == torch.argmax(lut, -1)).sum())
-    logit_err = (net - lut).abs().max().item()
-    lut_acc = float((torch.argmax(lut, -1) == test["y"].long())
-                    .float().mean())
-    sub_bad, sub_all, out_bad, out_all = _code_disagreements(
-        model, spec, tables, test["x"])
-    n_test = test["x"].shape[0]
-    log(f"[train] synthesise on the card: {synth_s:.3f} s; lut_forward vs "
-        f"QAT forward on {n_test} test samples: argmax agree {agree}, "
-        f"max logit difference {logit_err:.3e} (step "
-        f"{LS.OUTPUT_QUANT.step:.3e}); codes disagreeing: sub-neuron "
-        f"{sub_bad} of {sub_all}, layer outputs {out_bad} of {out_all}; "
-        f"LUT accuracy {lut_acc:.4f}")
-    check(agree == n_test, f"[train] argmax differs on {n_test - agree} "
-          f"test samples")
-    check(logit_err <= LS.OUTPUT_QUANT.step + 1e-6,
-          f"[train] logits differ by {logit_err}")
-    codes = fq.to_code(fq.clip(test["x"]))
-    plain = codes
-    for t in tables:
-        plain = LS.lut_layer_forward(t, plain)
-    fn = ops.make_network_fn(tables, device=dev)
-    plan = fn.execution_plan
-    check(plan.mode == "fused" and not plan.pipeline,
-          f"[train] default plan {plan.describe()} is not kernel 1")
-    for B in (n_test, 256):
-        check(torch.equal(fn(codes[:B]), plain[:B]),
-              f"[train] kernel 1 differs from plain lut_forward at B={B}")
-    log(f"[train] kernel 1 ({plan.describe()}) == plain lut_forward bit "
-        f"for bit at B={n_test} and B=256")
+    tables, lut, synth = synth_check("[train]", model, spec, test, dev)
 
     # (3) the saved artifact served through serve --lut on the card
-    n_req = 2000
-    idx, _ = serve.request_codes(fq, data, n_req)
-    want_acc = float((torch.argmax(lut, -1).cpu().numpy()[idx]
-                      == data["test"]["y"][idx]).mean())
     with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
         d, e = os.path.join(tmp, "hdr"), os.path.join(tmp, "jsc")
-        path = save_artifact(d, tables, name="hdr-add2", spec=spec,
-                             provenance={"dataset": "mnist",
-                                         "n_samples": n_samples,
-                                         "train_steps": steps})
-        out = io.StringIO()
-        # ---- the main path: counts zeroed just before, read just after
-        K.reset_launch_counts()
-        with contextlib.redirect_stdout(out):
-            res = serve.main(["--lut", "--artifact-dir", d, "--device",
-                              str(dev), "--requests", str(n_req), "--rate",
-                              "4000", "--microbatch", "256"])
-        counts = K.launch_counts()
-        # ----
-        text = out.getvalue()
-        log("\n".join(f"[train] serve: {ln}" for ln in text.splitlines()))
-        check("lut-serve[artifact]" in text and res.origin == "artifact",
-              "[train] serve --lut did not cold-load the artifact")
-        check(res.failed == 0 and res.dropped == 0 and res.served == n_req,
-              f"[train] {res.failed} failed, {res.dropped} dropped of "
-              f"{n_req}")
-        check(res.accuracy == want_acc, f"[train] served accuracy "
-              f"{res.accuracy} != the tables' {want_acc} on those requests")
-        check(counts["lut_network_fused"] > 0,
-              "[train] serve --lut never launched kernel 1")
-        log(f"[train] served {os.path.basename(path)}: {n_req} requests, 0 "
-            f"failed, 0 dropped, accuracy {res.accuracy:.4f} (the tables' "
-            f"own on those rows {want_acc:.4f}), p50 {res.p50_ms:.3f} ms "
-            f"p99 {res.p99_ms:.3f} ms, {len(res.flush_ms)} flushes, engine "
-            f"ms a flush mean {res.engine_ms:.3f} p50 "
-            f"{np.median(res.flush_ms):.3f} max {max(res.flush_ms):.3f}; "
-            f"launches {counts}")
+        res, counts, _ = serve_check(
+            "[train]", dev, d, tables, spec, data, lut,
+            provenance={"dataset": "mnist", "n_samples": n_samples,
+                        "train_steps": steps})
 
         # (4) train + synthesise + save through the entry point
         out = io.StringIO()
@@ -1124,14 +1224,284 @@ def phase_train(dev, results, steps=TRAIN_STEPS, n_samples=12000):
         idle_share=1 - busy / wall,
         idle_share_untraced=1 - busy / 10 / step_ms[0],
         trace_kernels=n_kernels, accuracies=accs,
-        accuracy=acc, a_ref=A_REF, synth_s=synth_s, lut_accuracy=lut_acc,
-        argmax_agree=agree, n_test=n_test, logit_err=logit_err,
-        sub_codes_disagree=sub_bad, sub_codes=sub_all,
-        out_codes_disagree=out_bad, out_codes=out_all,
+        accuracy=acc, a_ref=A_REF, **synth,
         served_accuracy=res.accuracy, p50_ms=res.p50_ms,
         p99_ms=res.p99_ms, flush_ms=res.flush_ms,
         counts=counts, cli_train_s=cli_s,
         cli_accuracy=res4.accuracy, wall_s=wall_phase)
+    return {k: counts.get(k, 0) for k in LUT_KERNELS}
+
+
+# The [search] phase searches HDR-Add2's connectivity as the reference's
+# paper-scale MNIST test does (tests/test_system.py:205-223): a 4-member
+# population, 100 steps of batch 256 (batch order 3), phase_frac 0.6,
+# eps2 2e-3, lr 0.15; member p starts from init_search_model on a CPU
+# generator seeded p (digests below).  The best member's masks retrain
+# from [train]'s two starts.  A_REF_SEARCH is the JAX package's searched
+# mean for that protocol on the CPU (its own jax.random search, key 3;
+# retrained from the same two starts), from
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu python aref_hdr_add2.py --search
+A_REF_SEARCH = 0.7312500178813934
+# the JAX run's random arm is A_REF (0.6150000 and 0.6858333 again), and
+# its searched runs 0.7341667 and 0.7283334: the reference's claim,
+# searched >= random - 0.01 (tests/test_system.py:223), holds there, so
+# the phase holds it too
+CLAIM_SLACK = 0.01
+SEARCH_SEEDS = (0, 1, 2, 3)
+SEARCH_INIT_CHECKSUMS = {0: "91713880299ab999", 1: "9054163e65a76521",
+                         2: "df041dcf18bd7c1c", 3: "36e32bebf5dfd24c"}
+SEARCH_STEPS, SEARCH_LR, SEARCH_BATCH = 100, 0.15, 256
+SEARCH_PHASE_FRAC, SEARCH_EPS2, SEARCH_BATCH_SEED = 0.6, 2e-3, 3
+PARITY_STEPS, PARITY_THETA_TOL = 5, 1e-5
+
+
+def theta_checksum(tlayers) -> str:
+    """A digest of a search start (theta, sign, bias of every layer,
+    bytes on the CPU)."""
+    import hashlib
+    h = hashlib.sha256()
+    for tl in tlayers:
+        for leaf in (tl.theta, tl.sign, tl.bias):
+            h.update(leaf.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _search_state_to(state, dev):
+    """A copy of a search state's tensors on ``dev`` (its generators
+    stay: the parity run passes its draws)."""
+    from repro_torch.optim.adamw import OptState, tree_map
+    move = lambda t: t.detach().to(dev, copy=True)   # noqa: E731
+    return {"tlayers": tree_map(move, state["tlayers"]),
+            "opt": OptState(step=move(state["opt"].step),
+                            mu=tree_map(move, state["opt"].mu), nu=None),
+            "gens": state["gens"], "step": move(state["step"])}
+
+
+def phase_search(dev, results, steps=SEARCH_STEPS, train_steps=TRAIN_STEPS,
+                 n_samples=12000):
+    """The SparseLUT toolflow on the card at HDR-Add2's published widths:
+    search, select, masks -> conn, QAT retrain, synthesise, save with the
+    search provenance, serve through ``serve --lut`` and kernel 1.
+    (1) The first 5 steps on the card and on the CPU from the same start
+    and the same draws (made on the CPU): equal active sets in every
+    layer, theta within 1e-5.  (2) The population search through
+    ``search_connectivity_population``: every member's end state holds
+    exactly 8 actives per neuron in every layer (its ledger, and the
+    extracted masks equal to its active sets; ``final_mask`` keeps 8 by
+    construction, so the count of the masks alone proves nothing); a
+    second run of the same start through ``make_search_step`` (steps
+    6-15 traced, 16-45 timed by CUDA events) holds ``fan_in_violation
+    <= 0`` at every step from the end of the ramp on and ends on the
+    entry point's masks (the search is deterministic on the card).
+    (3) The best member's masks retrained from [train]'s two starts
+    (250 QAT steps, lr 5e-3), the first synthesised and served
+    (``synth_check``, ``serve_check``) with ``search_provenance`` in
+    its manifest.  (4) Searched mean accuracy >= A_REF_SEARCH - 0.05."""
+    import hashlib
+
+    import torch
+    from repro_torch.artifact import verify_artifact
+    from repro_torch.configs import paper_models as PM
+    from repro_torch.core import lutdnn as LD
+    from repro_torch.core import sparse_train as ST
+    from repro_torch.data.loader import batch_iterator, to_device
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False
+          and torch.get_float32_matmul_precision() == "highest",
+          "[search] TF32 is enabled for float32 products")
+    t_phase = time.perf_counter()
+    spec = PM.hdr_add2()
+    data = mnist_split(n_samples)
+    test = to_device(data["test"], dev)
+    n_phase = int(steps * SEARCH_PHASE_FRAC)
+    cfgs = LD.search_sparsity_configs(spec, n_phase, eps2=SEARCH_EPS2)
+    ramp_end = int(np.ceil(max(n_phase * (1 - cfgs[0].cooldown_frac), 1)))
+    _, step = LD.make_search_step(spec, cfgs, SEARCH_LR)
+
+    def gens():
+        return [torch.Generator().manual_seed(s) for s in SEARCH_SEEDS]
+
+    def start():
+        return LD.population_search_init(gens(), spec, cfgs, device=dev)
+
+    def batches():
+        return batch_iterator(data["train"], SEARCH_BATCH,
+                              seed=SEARCH_BATCH_SEED, device=dev)
+
+    state0 = start()
+    for p, seed in enumerate(SEARCH_SEEDS):
+        digest = theta_checksum(LD.population_member(state0, p)["tlayers"])
+        check(digest == SEARCH_INIT_CHECKSUMS[seed], f"[search] member "
+              f"{p}: start {digest} is not {SEARCH_INIT_CHECKSUMS[seed]}")
+
+    # (1) card against the CPU path: same start, same draws
+    draw_gens = [torch.Generator().manual_seed(100 + s)
+                 for s in SEARCH_SEEDS]
+    cpu = _search_state_to(state0, torch.device("cpu"))
+    card = _search_state_to(state0, dev)
+    it = batches()
+    for i in range(PARITY_STEPS):
+        b = next(it)
+        draws = LD.search_draws(draw_gens, cpu["tlayers"])
+        cpu, _ = step(cpu, {k: v.cpu() for k, v in b.items()}, draws)
+        card, _ = step(card, b, [(n.to(dev), u.to(dev))
+                                 for n, u in draws])
+    same = [bool(torch.equal(a.theta > 0, b.theta.cpu() > 0))
+            for a, b in zip(cpu["tlayers"], card["tlayers"])]
+    theta_err = max((a.theta - b.theta.cpu()).abs().max().item()
+                    for a, b in zip(cpu["tlayers"], card["tlayers"]))
+    log(f"[search] {PARITY_STEPS} steps, card vs CPU from the same start "
+        f"and draws: active sets equal per layer {same}, max |theta "
+        f"difference| {theta_err:.3e}")
+    check(all(same), "[search] card and CPU active sets differ")
+    check(theta_err <= PARITY_THETA_TOL, f"[search] card and CPU theta "
+          f"differ by {theta_err}")
+    del cpu, card
+
+    # (2) the search, through its entry point, from fresh generators of
+    # the same seeds: state0's start, checked above
+    del state0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masks, scores, hist, states = LD.search_connectivity_population(
+        gens(), spec, batches(), steps, phase_frac=SEARCH_PHASE_FRAC,
+        lr=SEARCH_LR, eps2=SEARCH_EPS2, device=dev)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    ledger = ST.fan_in_ledger(states["tlayers"], cfgs)
+    for i, (m, tl, row) in enumerate(zip(masks, states["tlayers"], ledger)):
+        check(row["fan_in_min"] == row["fan_in_max"] == row["target_fan_in"]
+              and torch.equal(m, (tl.theta > 0).to(m.dtype)),
+              f"[search] layer {i}: the end states hold "
+              f"{row['fan_in_min']}-{row['fan_in_max']} actives a neuron, "
+              f"not {row['target_fan_in']}, or the masks are not their "
+              f"active sets")
+    log(f"[search] {len(SEARCH_SEEDS)} members x {steps} steps "
+        f"(B={SEARCH_BATCH}, lr {SEARCH_LR}, phase_frac "
+        f"{SEARCH_PHASE_FRAC}, eps2 {SEARCH_EPS2}): {search_s:.2f} s; "
+        f"end states exactly {spec.layer_specs()[0].total_fan_in} actives "
+        f"a neuron in every layer of every member, the extracted masks "
+        f"their active sets; member scores "
+        f"{[round(float(x), 4) for x in scores]}; fan_in_ledger {ledger}; "
+        f"last history {hist[-1]}")
+
+    # the same start again, step by step: cost and the fan-in invariant
+    state = start()
+    it = batches()
+    run = [next(it) for _ in range(steps)]
+    for b in run[:5]:
+        state, _ = step(state, b)
+    box = {"state": state}
+
+    def ten_steps():
+        for b in run[5:15]:
+            box["state"], _ = step(box["state"], b)
+    wall, per = profile_kernels(ten_steps)
+    state = box["state"]
+    busy = sum(ms for ms, _ in per.values())
+    n_kernels = sum(n for _, n in per.values())
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for b in run[15:ramp_end]:
+        state, _ = step(state, b)
+    ev1.record()
+    ev1.synchronize()
+    step_ms = ev0.elapsed_time(ev1) / (ramp_end - 15)
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+    log("[search] the traced steps' device time by kernel (ms, launches): "
+        + "; ".join(f"{name[:60]} {ms:.2f} ({n})" for name, (ms, n) in top))
+    worst = []
+    for b in run[ramp_end:]:
+        state, _ = step(state, b)
+        worst.append(ST.fan_in_violation(state["tlayers"], cfgs))
+    worst = int(torch.stack(worst).max())
+    again = ST.extract_masks(state["tlayers"], cfgs)
+    rerun_equal = all(torch.equal(a, b) for a, b in zip(again, masks))
+    log(f"[search] step by step from the same start: {step_ms:.3f} ms a "
+        f"step (CUDA events, steps 16-{ramp_end}); 10 traced steps: host "
+        f"wall {wall:.2f} ms, device busy {busy:.2f} ms (idle share "
+        f"{1 - busy / wall:.3f}; against the untraced step "
+        f"{1 - busy / 10 / step_ms:.3f}), {n_kernels} kernels "
+        f"({n_kernels / 10:.0f} a step); max fan_in_violation over steps "
+        f"{ramp_end + 1}-{steps}: {worst}; masks equal to the entry "
+        f"point's: {rerun_equal}")
+    check(worst <= 0, f"[search] fan-in exceeds its target by {worst} "
+          f"after the ramp")
+    check(rerun_equal, "[search] the same start searched twice on the "
+          "card ends on different masks")
+
+    # (3) the best member's masks retrained from [train]'s starts
+    best_masks, best = LD.select_best_masks(masks, scores)
+    conn = LD.masks_to_conn(best_masks, spec)
+    init_state, tstep = LD.make_train_step(spec, lr=TRAIN_LR)
+    eval_step = LD.make_eval_step(spec)
+    accs, models = [], []
+    for seed in TRAIN_SEEDS:
+        st = init_state(torch.Generator().manual_seed(seed), device=dev)
+        digest = init_checksum(st["model"])
+        check(digest == INIT_CHECKSUMS[seed], f"[search] seed {seed}: "
+              f"start {digest} is not A_REF's {INIT_CHECKSUMS[seed]}")
+        st["model"]["conn"] = conn
+        it = batch_iterator(data["train"], TRAIN_BATCH, seed=seed,
+                            device=dev)
+        for _ in range(train_steps):
+            st, _ = tstep(st, next(it))
+        acc, _ = eval_step(st["model"], test)
+        accs.append(float(acc))
+        models.append(st["model"])
+    acc = sum(accs) / len(accs)
+    rand = results["_train"]["accuracies"]
+    rand_mean = sum(rand) / len(rand)
+    log(f"[search] best member {best} (seed {SEARCH_SEEDS[best]}); "
+        f"retrained {train_steps} QAT steps from [train]'s starts "
+        f"{TRAIN_SEEDS}: test accuracy {[round(a, 4) for a in accs]}, "
+        f"mean {acc:.4f}; random connectivity from the same starts "
+        f"([train]) mean {rand_mean:.4f}; searched - random "
+        f"{acc - rand_mean:+.4f}; A_ref_search {A_REF_SEARCH:.4f} "
+        f"(floor {A_REF_SEARCH - A_SLACK:.4f})")
+    check(acc >= A_REF_SEARCH - A_SLACK, f"[search] searched mean "
+          f"accuracy {acc:.4f} is below A_ref_search - {A_SLACK}")
+    check(acc >= rand_mean - CLAIM_SLACK, f"[search] searched mean "
+          f"{acc:.4f} is below random {rand_mean:.4f} - {CLAIM_SLACK}")
+
+    tables, lut, synth = synth_check("[search]", models[0], spec, test, dev)
+    prov = LD.search_provenance(
+        spec, cfgs, LD.population_member(states, best), n_steps=steps,
+        lr=SEARCH_LR, seeds=[SEARCH_SEEDS[best]], history=hist)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-search-") as tmp:
+        d = os.path.join(tmp, "hdr-searched")
+        res, counts, path = serve_check(
+            "[search]", dev, d, tables, spec, data, lut,
+            provenance={"dataset": "mnist", "n_samples": n_samples,
+                        "train_steps": train_steps}, search=prov)
+        manifest = verify_artifact(path)
+        recomputed = hashlib.sha256(json.dumps(
+            {"layers": manifest["layers"], "slabs": manifest["slabs"]},
+            sort_keys=True).encode()).hexdigest()
+    check(recomputed == manifest["artifact_id"]
+          and path.endswith(recomputed[:12]),
+          "[search] the searched artifact's id does not recompute")
+    check(manifest.get("search") == json.loads(json.dumps(prov)),
+          "[search] the manifest does not carry the search provenance")
+    wall_phase = time.perf_counter() - t_phase
+    log(f"[search] manifest search provenance: ledger "
+        f"{manifest['search']['fan_in_ledger']}; id {recomputed[:12]} "
+        f"recomputed; phase wall {wall_phase:.1f} s")
+    results["_search"] = dict(
+        parity_active_equal=same, parity_theta_err=theta_err,
+        search_s=search_s, scores=[float(x) for x in scores], best=best,
+        ledger=ledger, hist=hist, step_ms=step_ms, trace_wall_ms=wall,
+        trace_busy_ms=busy, idle_share=1 - busy / wall,
+        idle_share_untraced=1 - busy / 10 / step_ms,
+        trace_kernels=n_kernels, kernels_a_step=n_kernels / 10,
+        trace_top=[(name, ms, n) for name, (ms, n) in top],
+        max_violation_after_ramp=worst, rerun_masks_equal=rerun_equal,
+        accuracies=accs, accuracy=acc, random_mean=rand_mean,
+        a_ref_search=A_REF_SEARCH, **synth, served_accuracy=res.accuracy,
+        p50_ms=res.p50_ms, p99_ms=res.p99_ms, counts=counts,
+        artifact_id=recomputed, wall_s=wall_phase)
     return {k: counts.get(k, 0) for k in LUT_KERNELS}
 
 
@@ -1659,6 +2029,8 @@ def main() -> int:
     for name, n in phase_fleet(dev, results).items():
         counts[name] += n
     for name, n in phase_train(dev, results).items():
+        counts[name] += n
+    for name, n in phase_search(dev, results).items():
         counts[name] += n
     phase_wkv(dev, results)
     counts.update(phase_masked_mm(dev, results))

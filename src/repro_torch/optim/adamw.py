@@ -1,5 +1,6 @@
-"""Minimal optax-style optimizers over nested dict/list trees of
-tensors (port of ``repro.optim.adamw``).
+"""Minimal optax-style optimizers over nested trees of tensors (port
+of ``repro.optim.adamw``): dicts, lists, tuples, named tuples and
+dataclasses such as ``core.masking.ThetaLayer``.
 
 An optimizer is a pair ``(init_fn, update_fn)``:
     state  = init_fn(params)
@@ -13,6 +14,7 @@ the same parameters in both packages.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -28,14 +30,23 @@ Schedule = Callable[[torch.Tensor], torch.Tensor]
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over the leaves of ``tree`` (nested dicts, lists and
-    tuples) and the matching leaves of ``rest``; ``None`` stays None."""
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest``.  Dicts, lists, tuples, named tuples and dataclass
+    instances (their fields in order) are walked and rebuilt as their
+    own type, as JAX's registered pytrees are; ``None`` stays None."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        kids = [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+        return type(tree)(*kids) if hasattr(tree, "_fields") \
+            else type(tree)(kids)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{
+            f.name: tree_map(fn, getattr(tree, f.name),
+                             *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
     if tree is None:
         return None
     return fn(tree, *rest)

@@ -92,3 +92,33 @@ def test_train_synth_modules_and_serve_lut_cli_import_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "--save-artifact" in proc.stdout
     assert proc.stdout.strip().endswith("[]"), proc.stdout
+
+
+SEARCH_PROBE = """
+import sys
+import repro_torch.core.masking, repro_torch.core.sparse_train
+from repro_torch.core import (ThetaLayer, init_theta_layer, random_mask,
+                              mask_to_indices, final_mask, effective_weight,
+                              SparsityConfig, sparse_control,
+                              make_search_step, search_connectivity,
+                              masks_to_conn)
+from repro_torch.core.lutdnn import (search_connectivity_population,
+                                     search_state_from_numpy)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro")
+             or m.startswith(("jax.", "jaxlib.", "repro.")))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_search_modules_and_core_exports_import_no_jax():
+    """The connectivity search (``core.masking``, ``core.sparse_train``
+    and the search half of ``core.lutdnn``) and the names ``core``
+    exports, as the reference's ``repro.core`` does, load neither JAX
+    nor anything of ``repro``."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", SEARCH_PROBE], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("[]"), proc.stdout
