@@ -106,14 +106,49 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              prefill and two decode steps gives the device's busy and
              idle share and the WKV kernel's share of device time.
 
+12. lm_attn — qwen2.5-3b at full width (36 layers, d_model 2048, 16
+             heads with kv 2 x 128, d_ff 11008, vocab 151936, bf16, 3.09 B
+             weights from a fixed seed on the card), served through
+             ``repro_torch.launch.serve``: a B=4 x 512-token prefill and 32
+             greedy decode steps, all logits finite.  The bf16 model against
+             the same weights in float32, block by block on the same inputs
+             and over the whole model; in float32, a 64-token prefill then
+             decode steps against one forward over the same tokens; decode
+             with the int8 KV cache against the bf16 cache; ``serve
+             --kv-int8`` as a user calls it.  Prefill ms, decode ms a step,
+             tokens/s, and a profiler trace of one prefill and two decode
+             steps (idle share, top kernels).
+13. lm_train — ``examples/torch_lm_sparse_train.py``'s model (12 layers x
+             512 d, 8 heads with kv 4, d_ff 2048, vocab 8192, float32,
+             SparseLUT FFN at F_o 64): the first 5 steps on the card against
+             the CPU path from the same start, batches and draws (loss
+             within 1e-5 relative; active sets equal but for swaps of
+             near-tied thetas at the pruning boundary, which AdamW's
+             noise-level updates can cause: at most 16 a step, each
+             checked at its step); 100 steps at B=8 x 128
+             through the port's ``Trainer`` with checkpoints every 25 steps
+             and a failure injected at step 40 (recovered once); fan-in at
+             most f(step) at every step and exactly 64 once the ramp has
+             landed; a new ``Trainer`` resumes from the directory bit for
+             bit; the last 10 steps' loss against the JAX package's
+             (``aref_lm.py``); ms a step, kernels a step, idle share.
+             Then ``launch.train --sparse-ffn`` at the reference's
+             defaults (qwen2.5-3b smoke, 100 steps).
+14. examples — ``torch_quickstart.py`` (argmax agreement 100.0%),
+             ``torch_mnist_sparselut.py`` and ``torch_lut_serve.py`` (0
+             failed, 0 dropped) on the card, kernel 1 counted.
+
+``python3 chip_smoke.py --phases lm_attn,lm_train`` runs only the named
+phases (after ``device``) and prints no result line.
+
 Output: a ``kernels`` JSON line (each kernel's ``ms`` by CUDA events
 and ``device_ms`` on the device clock, beside its bound, plain and
 library times, at the shape where its path launches it: the LUT kernels
 at HDR-Add2's 256-row micro-batch with int4 slabs, WKV6 at the prefill
 call, the masked matmul at B=1024; ``launches`` counted over each
 kernel's paths, kernel 1's over the serve phase, the fleet phase (read
-back from the workers) and the train and search phases' ``serve
---lut``), the ``nvidia-smi`` line, and as the last line
+back from the workers), the train and search phases' ``serve --lut``
+and the examples), the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -1782,7 +1817,7 @@ def _block_inputs(cfg, params, toks, LM):
     xs = []
     for i, (kind, bp) in enumerate(zip(cfg.kinds, params["blocks"])):
         xs.append(x)
-        x, _ = LM.block_apply(cfg, kind, bp, x, cache["blocks"][i])
+        x, _ = LM.block_apply(cfg, kind, bp, x, None, cache["blocks"][i])
     return xs
 
 
@@ -1866,14 +1901,14 @@ def phase_lm(dev, results, smoke=False, B=4, P=512, GEN=32):
     states = []
     for i, (kind, bp) in enumerate(zip(cfg.kinds, params["blocks"])):
         zero = LM.block_cache_init(cfg, kind, B, P, dev)
-        yk, ck = LM.block_apply(cfg, kind, bp, xs[i], zero)
-        yp, cp = LM.block_apply(plain, kind, bp, xs[i], zero)
+        yk, ck = LM.block_apply(cfg, kind, bp, xs[i], None, zero)
+        yp, cp = LM.block_apply(plain, kind, bp, xs[i], None, zero)
         blk_rel = max(blk_rel, _rel_err(yk, yp)[1], _state_rel(ck, cp))
         states.append(ck)
     x = LM._embed(cfg, params, res.tokens[:, :1])
     for i, (kind, bp) in enumerate(zip(cfg.kinds, params["blocks"])):
-        yk, ck = LM.block_apply(cfg, kind, bp, x, states[i])
-        yp, cp = LM.block_apply(plain, kind, bp, x, states[i])
+        yk, ck = LM.block_apply(cfg, kind, bp, x, None, states[i])
+        yp, cp = LM.block_apply(plain, kind, bp, x, None, states[i])
         blk_rel = max(blk_rel, _rel_err(yk, yp)[1], _state_rel(ck, cp))
         x = yk
     del xs, states
@@ -1930,11 +1965,12 @@ def phase_lm(dev, results, smoke=False, B=4, P=512, GEN=32):
     xs = _block_inputs(cfg, params, toks, LM)
     state_rel = 0.0
     for i, (kind, bp) in enumerate(zip(cfg.kinds, params["blocks"])):
-        _, cp = LM.block_apply(cfg, kind, bp, xs[i],
+        _, cp = LM.block_apply(cfg, kind, bp, xs[i], None,
                                LM.block_cache_init(cfg, kind, B, 64, dev))
         cd = LM.block_cache_init(cfg, kind, B, 64, dev)
         for t in range(64):
-            _, cd = LM.block_apply(cfg, kind, bp, xs[i][:, t:t + 1], cd)
+            _, cd = LM.block_apply(cfg, kind, bp, xs[i][:, t:t + 1], None,
+                                   cd)
         state_rel = max(state_rel, _state_rel(cd, cp))
     del xs
     lp, cache_p = LM.prefill(p32, c32, toks, 64)
@@ -1991,6 +2027,562 @@ def phase_lm(dev, results, smoke=False, B=4, P=512, GEN=32):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the attention LM family: qwen2.5-3b served, the SparseLUT-FFN LM trained
+# ---------------------------------------------------------------------------
+
+# Tolerances of [lm_attn], each a max error relative to the largest
+# magnitude of the logits it is held to (``_rel_err``):
+# - bf16 block by block against the same weights in float32, each block
+#   fed the same (bf16) input: one block's bf16 roundings (unit roundoff
+#   2^-9 at some 30 rounded ops), with no depth to amplify them;
+LM_ATTN_BLOCK_TOL = 5e-2
+# - the whole bf16 model against float32 (prefill and every decode step):
+#   each block's roundings, carried through 36 blocks of random weights
+#   (2.1e-2 measured on an H100; the limit is about 4x that);
+LM_ATTN_BF16_TOL = 0.08
+# - float32, prefill of 64 tokens then decode steps against one forward
+#   over the same tokens, position by position: the same float32
+#   arithmetic in other matmul shapes (other summation orders), TF32 off;
+LM_ATTN_F32_TOL = 1e-3
+# - decode with the int8 KV cache against the bf16 cache, same tokens:
+#   K and V rounded to 1/254 of each token-head's largest magnitude
+#   (2.8e-2 measured on an H100; the limit is about 3x that).
+LM_ATTN_INT8_TOL = 0.08
+
+
+def _example(name):
+    """An example script of ``examples/`` as a module."""
+    import importlib
+    path = os.path.join(ROOT, "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
+def _argmax_agree(got, want, bound):
+    """Share of rows whose argmax agrees, over rows whose top-2 margin in
+    ``want`` exceeds twice ``bound`` (absolute), and that row count."""
+    import torch
+    w = want.float()
+    top2 = torch.topk(w, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * bound
+    same = got.float().argmax(-1) == w.argmax(-1)
+    n = int(clear.sum())
+    return (float(same[clear].float().mean()) if n else 1.0), n
+
+
+def phase_lm_attn(dev, results, smoke=False, B=4, P=512, GEN=32):
+    """qwen2.5-3b at full width by default (``smoke`` rehearses it)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm as LM
+    from repro_torch.models import registry as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # float32 checks
+    arch = "qwen2.5-3b"
+    t_phase = t0 = time.perf_counter()
+    cfg, params = serve.init_lm(arch, smoke=smoke, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(smoke or (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.dtype)
+          == (36, 2048, 16, 2, 128, 11008, 151936, torch.bfloat16),
+          f"[lm_attn] not the full-width config: {cfg}")
+    n_params = sum(t.numel() for t in _leaves(params))
+    red = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    log(f"[lm_attn] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads (kv {cfg.n_kv_heads}) x "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{str(cfg.dtype)[6:]}; {n_params} weights ({n_params * 2 / 1e9:.2f}"
+        f" GB) drawn on the card in {init_s:.2f} s; scores and values as "
+        f"float32 products of upcast bf16 operands; cuBLAS bf16 "
+        f"reduced-precision reduction allowed: {red}; TF32: "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    prompt = serve.make_prompt(cfg, B, P, seed=0, device=dev)
+    serve.serve_lm(params, cfg, prompt[:, :64], gen=2)      # warm-up
+
+    # ---- the main path: the serve module's loop at B x P, GEN steps
+    res = serve.serve_lm(params, cfg, prompt, gen=GEN, keep_logits=True)
+    # ----
+    check(all(bool(torch.isfinite(lg).all()) for lg in res.logits),
+          "[lm_attn] non-finite logits")
+    decode_ms = res.decode_s / GEN * 1e3
+    log(f"[lm_attn] served B={B} x {P}-token prefill + {GEN} greedy decode "
+        f"steps: prefill {res.prefill_s * 1e3:.2f} ms, decode "
+        f"{decode_ms:.3f} ms/token step, {res.tokens_per_s:.1f} tokens/s; "
+        f"first tokens {res.tokens[0, :8].tolist()}")
+    out = dict(batch=B, prompt_len=P, gen=GEN, init_s=init_s,
+               params=n_params, prefill_ms=res.prefill_s * 1e3,
+               decode_ms_per_step=decode_ms, tokens_per_s=res.tokens_per_s,
+               bf16_reduced_precision_reduction=red)
+
+    def whole_model(c, p, feed=res.tokens):
+        """Prefill logits, then each decode step's, fed ``feed``."""
+        logits, cache = R.make_prefill_step(c, P + GEN)(p, prompt)
+        seq = [logits]
+        step = R.make_serve_step(c)
+        for i in range(GEN):
+            logits, cache = step(p, cache, feed[:, i:i + 1], P + i)
+            seq.append(logits)
+        return seq
+
+    # (1) bf16 against the same weights in float32, block by block on
+    # the same inputs (prefill), then over the whole model
+    p32 = _cast_params(params, torch.float32)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    x = LM._embed(cfg, params, prompt)
+    pos = torch.arange(P, device=dev)
+    blk = 0.0
+    for kind, bp, bp32 in zip(cfg.kinds, params["blocks"], p32["blocks"]):
+        y16, _ = LM.block_apply(cfg, kind, bp, x, pos, None)
+        y32, _ = LM.block_apply(c32, kind, bp32, x.float(), pos, None)
+        blk = max(blk, _rel_err(y16, y32)[1])
+        x = y16
+    del x, y16, y32
+    seq32 = whole_model(c32, p32)
+    rels = [_rel_err(a, b)[1] for a, b in zip(res.logits, seq32)]
+    agree, n_clear = _argmax_agree(
+        torch.stack(res.logits), torch.stack(seq32),
+        max(rels) * max(float(s.abs().max()) for s in seq32))
+    log(f"[lm_attn] bf16 vs the same weights in float32: each block on the "
+        f"same inputs (prefill) max error relative to scale {blk:.3e} "
+        f"(tolerance {LM_ATTN_BLOCK_TOL}); whole model, logits: prefill "
+        f"{rels[0]:.3e}, decode max {max(rels[1:]):.3e} (tolerance "
+        f"{LM_ATTN_BF16_TOL}); argmax agrees on {agree:.4f} of the "
+        f"{n_clear} rows whose margin clears twice the error")
+    check(blk <= LM_ATTN_BLOCK_TOL,
+          "[lm_attn] a bf16 block parts from its float32 self")
+    check(max(rels) <= LM_ATTN_BF16_TOL,
+          "[lm_attn] the bf16 model parts from its float32 self")
+    check(agree == 1.0, "[lm_attn] bf16 argmax differs on a clear row")
+    out.update(block_bf16_vs_f32_rel=blk, bf16_vs_f32_rel=rels,
+               bf16_vs_f32_argmax_agree=agree, clear_rows=n_clear)
+    del seq32
+
+    # (2) float32: a 64-token prefill, then decode steps, against one
+    # forward over the same tokens, position by position
+    toks = serve.make_prompt(cfg, B, 64 + 16, seed=2, device=dev)
+    with torch.no_grad():
+        full = LM.forward(p32, c32, toks)
+    lp, cache = LM.prefill(p32, c32, toks[:, :64], 64 + 16)
+    f32 = [_rel_err(lp, full[:, 63])[1]]
+    for t in range(64, 64 + 16):
+        ld, cache = LM.decode_step(p32, c32, cache, toks[:, t:t + 1], t)
+        f32.append(_rel_err(ld, full[:, t])[1])
+    del full, cache, p32
+    torch.cuda.empty_cache()
+    log(f"[lm_attn] float32, 64-token prefill + 16 decode steps vs one "
+        f"forward over the 80 tokens: logits max error relative to scale "
+        f"{max(f32):.3e} (tolerance {LM_ATTN_F32_TOL})")
+    check(max(f32) <= LM_ATTN_F32_TOL,
+          "[lm_attn] prefill + decode parts from the full forward")
+
+    # (3) decode with the int8 KV cache, fed the same tokens
+    c8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    seq8 = whole_model(c8, params)
+    r8 = [_rel_err(a, b)[1] for a, b in zip(seq8, res.logits)]
+    check(all(bool(torch.isfinite(lg).all()) for lg in seq8),
+          "[lm_attn] non-finite int8-cache logits")
+    agree8, n_clear8 = _argmax_agree(
+        torch.stack(seq8), torch.stack(res.logits),
+        max(r8) * max(float(s.abs().max()) for s in res.logits))
+    log(f"[lm_attn] int8 KV cache vs bf16 cache, same tokens: logits max "
+        f"error relative to scale: prefill {r8[0]:.3e}, decode max "
+        f"{max(r8[1:]):.3e} (tolerance {LM_ATTN_INT8_TOL}); argmax agrees "
+        f"on {agree8:.4f} of the {n_clear8} rows whose margin clears twice "
+        f"the error")
+    check(max(r8) <= LM_ATTN_INT8_TOL,
+          "[lm_attn] the int8 KV cache parts from the bf16 cache")
+    check(agree8 == 1.0, "[lm_attn] int8-cache argmax differs on a clear row")
+    del seq8
+    out.update(f32_prefill_decode_vs_forward_rel=f32, int8_vs_bf16_rel=r8,
+               int8_vs_bf16_argmax_agree=agree8, int8_clear_rows=n_clear8)
+
+    # (4) the CLI as a user calls it (the reference's flags, its default
+    # batch 4, prompt 32 and 16 tokens), with the int8 cache
+    buf = io.StringIO()
+    argv = ["--arch", arch, "--kv-int8"]
+    argv += ["--full"] if not smoke else ["--device", str(dev)]
+    with contextlib.redirect_stdout(buf):
+        cli = serve.main(argv)
+    log(f"[lm_attn] serve {' '.join(argv)}: {buf.getvalue().strip()}")
+    check("kv=int8" in buf.getvalue() and cli.tokens.shape == (4, 16)
+          and bool(torch.isfinite(cli.tokens.float()).all()),
+          "[lm_attn] serve --kv-int8 did not serve")
+    out["cli_int8"] = dict(prefill_ms=cli.prefill_s * 1e3,
+                           decode_ms_per_step=cli.decode_s / 16 * 1e3,
+                           tokens_per_s=cli.tokens_per_s)
+    del cli
+    torch.cuda.empty_cache()
+
+    # where the time goes: one prefill, then two decode steps, traced
+    prefill = R.make_prefill_step(cfg, P + GEN)
+    step = R.make_serve_step(cfg)
+    _, cache = prefill(params, prompt)
+    for what, fn in (
+            ("prefill", lambda: prefill(params, prompt)),
+            ("2 decode steps", lambda: [step(params, cache, res.tokens[
+                :, i:i + 1], P + i) for i in range(2)])):
+        wall, per = profile_kernels(fn)
+        busy = sum(ms for ms, _ in per.values())
+        launches = sum(n for _, n in per.values())
+        top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+        log(f"[lm_attn] trace, {what}: host wall {wall:.2f} ms, device busy "
+            f"{busy:.2f} ms (idle share {1 - busy / wall:.3f}), "
+            f"{launches} kernels; top: "
+            + "; ".join(f"{name[:48]} {ms:.2f} ms x{n}"
+                        for name, (ms, n) in top))
+        out[f"trace_{what.replace(' ', '_')}"] = dict(
+            wall_ms=wall, device_busy_ms=busy, kernels=launches,
+            top=[(name, ms, n) for name, (ms, n) in top])
+    del params, cache
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lm_attn] phase {out['phase_s']:.1f} s")
+    results["_lm_attn"] = out
+
+
+# [lm_train]: the example's model trained 100 steps on the card.  L_REF:
+# the JAX package's mean loss over the last 10 of the same 100 steps
+# (aref_lm.py, seeds 0 and 1, their mean), and the spread between them.
+LM_TRAIN_STEPS, LM_TRAIN_B, LM_TRAIN_S = 100, 8, 128
+LM_CKPT_EVERY, LM_FAIL_AT, LM_PARITY_STEPS = 25, 40, 5
+# card vs CPU: boundary swaps allowed a step (2 seen at step 5 of 5 on an
+# H100, 0 at steps 1-4)
+LM_SWAP_MAX = 16
+L_REF = 7.9919714450836175
+L_REF_SPREAD = 0.0015013694763181817
+L_SLACK = 0.05
+
+
+def _tree_to(tree, dev):
+    from repro_torch.optim.adamw import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def _fan_stats(LM, cfg, params, step):
+    """(max over leaves of (largest fan-in - f(step)), smallest fan-in)
+    as device tensors."""
+    import torch
+    from repro_torch.core.sparse_train import scheduled_target
+    scfg = LM.sparsity_config(cfg)
+    excess, low = [], []
+    for i, name in LM.theta_leaves(params):
+        fan = (params["blocks"][i]["ffn"][name] > 0).sum(0)
+        f = scheduled_target(scfg, step, cfg.d_model)
+        excess.append(fan.max() - f)
+        low.append(fan.min())
+    return torch.stack(excess).max(), torch.stack(low).min()
+
+
+def phase_lm_train(dev, results, smoke=False, steps=LM_TRAIN_STEPS,
+                   B=LM_TRAIN_B, S=LM_TRAIN_S):
+    """``examples/torch_lm_sparse_train.py``'s model at its published
+    widths (``smoke`` rehearses it at 2 layers x 64 d), then the train
+    CLI."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import lm as LM
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "[lm_train] TF32 is enabled for float32 products")
+    ex = _example("torch_lm_sparse_train")
+    cfg = ex.lm_100m(sparse=True, steps=steps)
+    if smoke:
+        cfg = dataclasses.replace(cfg, n_layers=2, d_model=64, n_heads=4,
+                                  n_kv_heads=2, head_dim=16, d_ff=128,
+                                  vocab=512, sparse_fan_in=8)
+    check(smoke or (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.d_ff, cfg.vocab, cfg.dtype, cfg.sparse_fan_in)
+          == (12, 512, 8, 4, 2048, 8192, torch.float32, 64),
+          f"[lm_train] not the example's config: {cfg}")
+    F = min(cfg.sparse_fan_in, cfg.d_model)
+    init_state, step = LM.make_train_step(cfg, ex.optimizer(steps),
+                                          remat=False)
+    t_phase = t0 = time.perf_counter()
+    start = init_state(torch.Generator().manual_seed(0), "cpu")
+    n_params = sum(t.numel() for t in tree_leaves(start["params"]))
+    log(f"[lm_train] {cfg.name}: {cfg.n_layers} layers x {cfg.d_model} d, "
+        f"{cfg.n_heads} heads (kv {cfg.n_kv_heads}), d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, float32, F_o {F}; {n_params} parameters drawn on the "
+        f"CPU in {time.perf_counter() - t0:.2f} s; B={B} x {S}, {steps} "
+        f"steps, sparse_phase_T {cfg.sparse_phase_T}")
+
+    # (1) + (2): the trainer runs 100 steps on the card from the start
+    # (checkpoints every 25, one failure injected at step 40) while a
+    # thread runs the first 5 steps on the CPU from the same start,
+    # batches and draws (made on the CPU); the card's first 5 steps take
+    # those draws.  AdamW moves an element whose gradient is float noise
+    # by a noise-set fraction of lr, so the two devices may part at the
+    # controller's pruning boundary.  At every one of those steps an
+    # element active on one side only must be, on that side, within
+    # 2 x (the summed lr) of its column's smallest active theta, with
+    # equal counts a column (a swap of near-tied thetas, no more), and
+    # there are at most LM_SWAP_MAX such swaps.
+    from repro_torch.optim.schedules import warmup_cosine
+    t0 = time.perf_counter()
+    draws = {k: LM.control_draws(cfg, start["params"], k)
+             for k in range(1, LM_PARITY_STEPS + 1)}
+    draws_s = time.perf_counter() - t0
+    cpu = {}
+
+    def thetas(params):
+        return {(i, n): params["blocks"][i]["ffn"][n].cpu()
+                for i, n in LM.theta_leaves(params)}
+
+    def cpu_steps():
+        s_cpu, b = start, ex.batches(cfg, B, S, "cpu")
+        for k in range(1, LM_PARITY_STEPS + 1):
+            s_cpu, m = step(s_cpu, next(b), draws=draws[k])
+            cpu[k] = (float(m["loss"]), thetas(s_cpu["params"]))
+        cpu["params"] = s_cpu["params"]
+
+    card, at = {}, {"step": 0}
+
+    def train_step(state, batch):
+        k = at["step"] + 1
+        d = _tree_to(draws[k], dev) if k in draws else None
+        new, m = step(state, batch, draws=d)
+        if k in draws:
+            card[k] = (float(m["loss"]), thetas(new["params"]))
+            if k == LM_PARITY_STEPS:
+                card["params"] = new["params"]
+        m = dict(m)
+        m["fan_excess"], m["fan_min"] = _fan_stats(LM, cfg, new["params"],
+                                                   new["opt"].step)
+        return new, m
+
+    failed = {"done": False}
+
+    def hook(s):
+        at["step"] = s
+        if s == LM_FAIL_AT and not failed["done"]:
+            failed["done"] = True
+            raise RuntimeError("injected failure")
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    worker = threading.Thread(target=cpu_steps)
+    worker.start()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-lm-") as tmp:
+        tr = Trainer(TrainerConfig(ckpt_dir=tmp, ckpt_every=LM_CKPT_EVERY,
+                                   keep=2),
+                     train_step, _tree_to(start, dev), failure_hook=hook)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run(ex.batches(cfg, B, S, dev), steps, log_every=1)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        worker.join()
+        both_s = time.perf_counter() - t0
+        torch.set_num_threads(threads)
+
+        # card vs CPU, the first steps
+        sched = warmup_cosine(3e-4, 20, steps)
+        worst_loss, swaps, lr_sum = 0.0, [], 0.0
+        n_theta = sum(t.numel() for t in cpu[1][1].values())
+        worst_gap = 0.0
+        for k in range(1, LM_PARITY_STEPS + 1):
+            (lc, tc), (ld, td) = cpu[k], card[k]
+            worst_loss = max(worst_loss, abs(lc - ld) / abs(lc))
+            lr_sum += float(sched(torch.tensor(k)))
+            n_swap = 0
+            for key, t_cpu in tc.items():
+                a, b = t_cpu > 0, td[key] > 0
+                diff = a ^ b
+                if not bool(diff.any()):
+                    continue
+                check(torch.equal(a.sum(0), b.sum(0)), f"[lm_train] step "
+                      f"{k}: {key}: fan-ins differ between card and CPU")
+                for t, m in ((t_cpu, a), (td[key], b)):
+                    low = torch.where(m, t, float("inf")).min(0).values
+                    gap = (t - low)[diff & m]
+                    worst_gap = max(worst_gap, float(gap.max()))
+                    check(bool((gap <= 2 * lr_sum).all()),
+                          f"[lm_train] step {k}: {key}: active sets "
+                          f"differ away from the pruning boundary "
+                          f"({float(gap.max()):.3e} > {2 * lr_sum:.3e})")
+                n_swap += int(diff.sum()) // 2
+            swaps.append(n_swap)
+        worst_param = max(float((a - b.cpu()).abs().max()) for a, b in zip(
+            tree_leaves(cpu["params"]), tree_leaves(card["params"])))
+        log(f"[lm_train] first {LM_PARITY_STEPS} steps, card vs CPU from "
+            f"one start, batches and draws (drawn in {draws_s:.1f} s): loss "
+            f"max relative difference {worst_loss:.3e} (tolerance 1e-5); "
+            f"connections swapped at the pruning boundary by step {swaps} of "
+            f"{n_theta} (each within 2 x summed lr of its column's smallest "
+            f"active theta: largest gap {worst_gap:.3e}, bound at step "
+            f"{LM_PARITY_STEPS} {2 * lr_sum:.3e}; allowed {LM_SWAP_MAX} a "
+            f"step); parameters after step "
+            f"{LM_PARITY_STEPS} max |difference| {worst_param:.3e}")
+        check(worst_loss <= 1e-5, "[lm_train] card and CPU losses differ")
+        check(max(swaps) <= LM_SWAP_MAX,
+              "[lm_train] too many active-set swaps between card and CPU")
+        del cpu, card
+
+        hist = tr.history
+        ramp_end = int(np.ceil(cfg.sparse_phase_T * 0.75))
+        excess = max(h["fan_excess"] for h in hist)
+        landed = hist[-(steps - ramp_end):]
+        last10 = float(np.mean([h["loss"] for h in hist[-10:]]))
+        log(f"[lm_train] Trainer: {tr.step} steps in {run_s:.2f} s with the "
+            f"CPU's steps running beside it ({both_s:.2f} s until both were "
+            f"done; {len(hist)} completed steps, checkpoints included), "
+            f"recoveries {tr.recoveries}, straggler events "
+            f"{tr.straggler_events}, checkpoints kept {tr.manager.steps()}; "
+            f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, last 10 "
+            f"steps {last10:.4f}; fan-in minus f(step), worst over every "
+            f"step {excess:.0f}; fan-in from step {ramp_end} on "
+            f"{min(h['fan_min'] for h in landed):.0f} to "
+            f"{max(h['fan_excess'] for h in landed) + F:.0f}")
+        check(tr.step == steps and tr.recoveries == 1 and failed["done"],
+              "[lm_train] the injected failure was not recovered")
+        check(excess <= 0, "[lm_train] a fan-in exceeded f(step)")
+        check(all(h["fan_min"] == F and h["fan_excess"] <= 0
+                  for h in landed),
+              f"[lm_train] fan-in is not exactly {F} after the ramp")
+        # (3) a new trainer resumes from the directory, bit for bit
+        fresh = init_state(torch.Generator(device=dev).manual_seed(1), dev)
+        tr2 = Trainer(TrainerConfig(ckpt_dir=tmp, ckpt_every=LM_CKPT_EVERY),
+                      step, fresh)
+        check(tr2.try_resume() and tr2.step == steps,
+              "[lm_train] no resume to the saved step")
+        same = all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(tr2.state), tree_leaves(tr.state)))
+        log(f"[lm_train] a new Trainer resumed at step {tr2.step}: state "
+            f"equal bit for bit: {same}")
+        check(same, "[lm_train] the resumed state differs")
+        state = tr.state
+        del tr2, fresh
+    out = dict(params=n_params, parity_loss_rel=worst_loss,
+               parity_swaps=swaps, parity_param_abs=worst_param)
+    if not smoke:
+        tol = max(L_SLACK, 3 * L_REF_SPREAD)
+        log(f"[lm_train] last-10-step loss {last10:.4f} vs L_REF {L_REF:.4f}"
+            f" (JAX package, aref_lm.py): difference {last10 - L_REF:+.4f}, "
+            f"tolerance {tol:.4f} = max({L_SLACK}, 3 x seed spread "
+            f"{L_REF_SPREAD:.4f})")
+        check(abs(last10 - L_REF) <= tol,
+              "[lm_train] the loss parts from the JAX package's")
+    # ms a step alone: 10 steps on the host clock
+    b = next(ex.batches(cfg, B, S, dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step(state, b)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 100
+    # where the time goes: two steps traced
+    wall, per = profile_kernels(lambda: [step(state, b) for _ in range(2)])
+    busy = sum(ms for ms, _ in per.values())
+    launches = sum(n for _, n in per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+    log(f"[lm_train] {step_ms:.1f} ms a step alone (10 steps, host clock); "
+        f"trace, 2 steps: host wall {wall / 2:.2f} ms a step, "
+        f"device busy {busy / 2:.2f} ms (idle share {1 - busy / wall:.3f}), "
+        f"{launches // 2} kernels a step; top: "
+        + "; ".join(f"{name[:48]} {ms / 2:.2f} ms x{n // 2}"
+                    for name, (ms, n) in top))
+    out.update(steps=tr.step, recoveries=tr.recoveries, run_s=run_s,
+               ms_per_step=step_ms, last10_loss=last10,
+               losses=[h["loss"] for h in hist], fan_excess_max=excess,
+               trace=dict(wall_ms_per_step=wall / 2,
+                          device_busy_ms_per_step=busy / 2,
+                          kernels_per_step=launches // 2,
+                          top=[(name, ms / 2, n // 2)
+                               for name, (ms, n) in top]))
+    # the train CLI as a user calls it (the reference's flags and its
+    # defaults: qwen2.5-3b smoke, 100 steps of B=8 x 64)
+    buf = io.StringIO()
+    n_cli = 100 if dev.type == "cuda" else 4
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp, \
+            contextlib.redirect_stdout(buf):
+        argv = ["--sparse-ffn", "--ckpt-dir", tmp, "--steps", str(n_cli)]
+        cli = train.main(argv + ([] if dev.type == "cuda" else
+                                 ["--device", str(dev), "--log-every", "2"]))
+    log(f"[lm_train] python -m repro_torch.launch.train "
+        f"{' '.join(argv[:1] + ['--ckpt-dir', 'D'] + argv[3:])}: "
+        f"{buf.getvalue().strip()}")
+    check(cli.step == n_cli and np.isfinite(cli.history[-1]["loss"]),
+          "[lm_train] launch.train did not train")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lm_train] phase {out['phase_s']:.1f} s")
+    results["_lm_train"] = out
+
+
+def phase_examples(dev, results, mnist_steps=30, serve_steps=40,
+                   requests=512):
+    """``torch_quickstart.py``, ``torch_mnist_sparselut.py`` and
+    ``torch_lut_serve.py`` on the card; kernel 1's launches counted from
+    zero over the phase."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels.lut_gather import lut_gather
+
+    out = {}
+    lut_gather.reset_launch_counts()
+    t_phase = t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lut_acc, agree = _example("torch_quickstart").main(dev)
+    text = buf.getvalue()
+    log("[examples] torch_quickstart.py: " + text.strip().splitlines()[-1]
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    check("argmax agreement with QAT model: 100.0%" in text,
+          "[examples] quickstart: LUT mode parts from the QAT model")
+    out["quickstart"] = dict(lut_acc=lut_acc, agree=agree)
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = _example("torch_mnist_sparselut").main(
+            ["--steps", str(mnist_steps), "--device", str(dev)])
+    log(f"[examples] torch_mnist_sparselut.py --steps {mnist_steps}: random "
+        f"{np.mean(res['random']):.4f}, DeepR* {res['deepr']:.4f}, "
+        f"SparseLUT {res['sparselut']:.4f} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(all(0.0 <= a <= 1.0 for a in res["random"] + [res["deepr"],
+                                                        res["sparselut"]]),
+          "[examples] mnist_sparselut: accuracies out of range")
+    out["mnist_sparselut"] = res
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ex-") as tmp, \
+            contextlib.redirect_stdout(buf):
+        res = _example("torch_lut_serve").main(
+            ["--train-steps", str(serve_steps), "--requests", str(requests),
+             "--artifact-dir", tmp, "--device", str(dev)])
+    counts = lut_gather.launch_counts()
+    for line in buf.getvalue().strip().splitlines()[-4:]:
+        log(f"[examples] torch_lut_serve.py: {line.strip()}")
+    for mid, r in res.items():
+        check(r["served"] == requests and r["failed"] == 0
+              and r["dropped"] == 0,
+              f"[examples] lut_serve {mid}: not every request served")
+    log(f"[examples] {time.perf_counter() - t0:.1f} s; kernel launches over "
+        f"the phase: {counts}")
+    check(counts.get("lut_network_fused", 0) > 0,
+          "[examples] kernel 1 never launched")
+    out.update(lut_serve=res, counts=counts,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"[examples] phase {out['phase_s']:.1f} s")
+    results["_examples"] = out
+    return {k: counts.get(k, 0) for k in LUT_KERNELS}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2019,6 +2611,14 @@ def main() -> int:
     sys.path.insert(0, SRC)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if sys.argv[1:2] == ["--phases"]:
+        # a partial run (the named phases only) prints no result line
+        log(f"[device] {phase_device()}")
+        results = {}
+        for name in sys.argv[2].split(","):
+            globals()[f"phase_{name}"](dev, results)
+        log(f"chip_smoke: partial run, phases {sys.argv[2]}")
+        return 0
 
     smi = phase_device()
     build = phase_build()
@@ -2035,6 +2635,10 @@ def main() -> int:
     phase_wkv(dev, results)
     counts.update(phase_masked_mm(dev, results))
     counts.update(phase_lm(dev, results))
+    phase_lm_attn(dev, results)
+    phase_lm_train(dev, results)
+    for name, n in phase_examples(dev, results).items():
+        counts[name] += n
 
     kernels = []
     for name, meta in KERNELS.items():

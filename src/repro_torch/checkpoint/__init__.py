@@ -1,2 +1,5 @@
-from repro_torch.checkpoint.checkpoint import (atomic_dir, sha256_bytes,
+from repro_torch.checkpoint.checkpoint import (AsyncCheckpointer,
+                                               CheckpointManager, atomic_dir,
+                                               restore_checkpoint,
+                                               save_checkpoint, sha256_bytes,
                                                sha256_file)

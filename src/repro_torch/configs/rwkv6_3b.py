@@ -8,12 +8,12 @@ from repro_torch.models.lm import LMConfig
 def config() -> LMConfig:
     return LMConfig(
         name="rwkv6-3b", n_layers=32, d_model=2560, n_heads=40,
-        d_ff=8960, vocab=65536,
+        n_kv_heads=40, head_dim=64, d_ff=8960, vocab=65536,
         pattern=(("rwkv", "rwkv_cm"),), norm="ln")
 
 
 def smoke_config() -> LMConfig:
     return LMConfig(
         name="rwkv6-3b-smoke", n_layers=2, d_model=64, n_heads=4,
-        d_ff=128, vocab=128,
+        n_kv_heads=4, head_dim=16, d_ff=128, vocab=128,
         pattern=(("rwkv", "rwkv_cm"),), norm="ln")

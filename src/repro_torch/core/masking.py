@@ -63,12 +63,12 @@ def ranks_desc(score: torch.Tensor, dim: int = -2) -> torch.Tensor:
     """Dense ranks along ``dim``: 0 = largest score, ties to the lower
     index (a stable argsort of ``-score``, then the inverse permutation
     by a scatter)."""
-    order = torch.argsort(-score, dim=dim, stable=True)
-    n = score.shape[dim]
-    shape = [1] * score.dim()
-    shape[dim] = n
-    ar = torch.arange(n, device=score.device).view(shape).expand_as(order)
-    return torch.empty_like(order).scatter_(dim, order, ar)
+    # sorted along a contiguous last axis (the same stable order, and
+    # 2-3x faster on the CPU than a strided axis)
+    s = score.movedim(dim, -1).contiguous()
+    order = torch.argsort(-s, dim=-1, stable=True)
+    ar = torch.arange(s.shape[-1], device=score.device).expand_as(order)
+    return torch.empty_like(order).scatter_(-1, order, ar).movedim(-1, dim)
 
 
 def init_theta_layer(gen: torch.Generator, n_in: int, n_out: int,

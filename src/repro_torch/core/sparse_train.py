@@ -115,27 +115,32 @@ def sparse_control(theta: torch.Tensor, normal: torch.Tensor,
     active = theta > 0
     n_active = torch.sum(active, dim=-2)
 
-    # ramped hard schedule: truncate to f(t) every step
+    # ramped hard schedule: truncate to f(t) every step.  The ranks of
+    # the active thetas (0 = smallest, ties to the lower index) are
+    # sorted once: the hard and swap prunes each zero a column's
+    # smallest actives, so the survivors keep their order and their
+    # ranks drop by the count pruned (the reference sorts anew each
+    # time, to the same ranks)
     prune_rank = ranks_desc(torch.where(active, -theta, float("-inf")))
     excess_hard = torch.clamp(n_active - f_sched, min=0)
     hard_sel = (prune_rank < _cols(excess_hard)) & active
     theta = torch.where(hard_sel, 0.0, theta)
     active = active & ~hard_sel
     n_active = torch.minimum(n_active, f_sched)
+    prune_rank = prune_rank - _cols(excess_hard)
 
     # ramped swap turnover on every swap_every-th progressive step
     rho = cfg.swap_frac * torch.clamp(
         1.0 - step.to(torch.float32) / _ramp_end(cfg), min=0.0)
     k_swap = torch.floor(rho * f_sched).to(torch.int32)      # scalar
     swap_now = progressive & (step % max(cfg.swap_every, 1) == 0)
-    prune_rank = ranks_desc(torch.where(active, -theta, float("-inf")))
     swap_sel = (prune_rank < k_swap) & active & swap_now
     theta = torch.where(swap_sel, 0.0, theta)
     active = active & ~swap_sel
     n_active = n_active - torch.sum(swap_sel, dim=-2)
+    prune_rank = prune_rank - k_swap * swap_now
 
     # lines 13-16: soft -eps2 pressure toward the FINAL target
-    prune_rank = ranks_desc(torch.where(active, -theta, float("-inf")))
     excess_soft = torch.clamp(n_active - f_final, min=0)
     soft_sel = (prune_rank < _cols(excess_soft)) & active & progressive
     theta = torch.where(soft_sel, theta - cfg.eps2, theta)

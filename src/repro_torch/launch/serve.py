@@ -1,16 +1,19 @@
 """Batched serving launcher: LM prefill + decode loop, or LUT mode
 (port of ``repro.launch.serve``).
 
-LM mode: one prefill builds the recurrent state for the whole batch,
-then ``serve_step`` decodes token by token, greedily or by sampling at
-``--temperature``.  Weights are drawn from a fixed seed (no published
-weights are in the repository); inference does the same work whatever
-their values.
+LM mode: one prefill builds the decode cache (KV caches for attention,
+the recurrent state for RWKV) for the whole batch, then ``serve_step``
+decodes token by token, greedily or by sampling at ``--temperature``.
+Any ported architecture serves (``--arch``, ``models/registry.ARCHS``;
+``qwen2.5-3b`` by default, as in the reference); ``--kv-int8`` stores
+the attention caches as int8 codes with per-token scales.  Weights are
+drawn from a fixed seed (no published weights are in the repository);
+inference does the same work whatever their values.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --smoke --device cpu --batch 4 --prompt-len 32 --gen 16
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
-        --full --batch 4 --prompt-len 512 --gen 32          # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+        --full --batch 4 --prompt-len 512 --gen 32 --kv-int8  # on the card
 
 ``--lut`` serves a LUT-DNN instead: a tiny jsc model is trained and
 synthesised to truth tables on the device (``build_lut_model``), or
@@ -32,8 +35,8 @@ batch stream through the scoreboard scheduler.
 
 Without ``--device`` both modes run on the CUDA card.  Not ported yet:
 ``--shards`` (a batch sharded over devices, ``ROADMAP.md`` Queue 1
-item 5) and ``--kv-int8`` (Queue 1 item 6); the LM architectures other
-than RWKV6 (item 6).
+item 5), and the MoE, RG-LRU and encoder-decoder architectures (item
+6).
 """
 from __future__ import annotations
 
@@ -605,7 +608,7 @@ def serve_lm(params: dict, cfg, prompt: torch.Tensor, gen: int,
 
 def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-3b",
+    ap.add_argument("--arch", default="qwen2.5-3b",
                     help=f"architecture id (ported: {sorted(R.ARCHS)})")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
@@ -649,17 +652,21 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="serve with the int8 KV cache")
     args = ap.parse_args(argv)
 
     if args.lut:
         return serve_lut(args)
 
     cfg, params = init_lm(args.arch, smoke=args.smoke, device=args.device)
+    if args.kv_int8:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
     dev = resolve_device(args.device)
     prompt = make_prompt(cfg, args.batch, args.prompt_len, device=dev)
     res = serve_lm(params, cfg, prompt, args.gen,
                    temperature=args.temperature)
-    print(f"arch={cfg.name} batch={args.batch} "
+    print(f"arch={cfg.name} kv={cfg.kv_cache_dtype} batch={args.batch} "
           f"prefill={res.prefill_s * 1e3:.1f}ms "
           f"decode={res.decode_s * 1e3:.1f}ms "
           f"({res.tokens_per_s:.1f} tok/s) "

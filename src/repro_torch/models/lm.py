@@ -1,26 +1,46 @@
-"""Decoder-only LM (port of ``repro.models.lm``), for the blocks ported
-so far: RWKV6 time mix paired with RWKV channel mix (``("rwkv",
-"rwkv_cm")``, the rwkv6 family).  Attention, RG-LRU, dense-FFN and MoE
-blocks, LM training and the int8 KV cache wait (``ROADMAP.md``, Queue 1
-item 8); asking for them raises ``NotImplementedError``.
+"""Decoder-only LM (port of ``repro.models.lm``) for the blocks ported so
+far: global (``attn``) and sliding-window (``local``) attention paired
+with the dense FFN (``dense``), and RWKV6 time mix paired with RWKV
+channel mix (``("rwkv", "rwkv_cm")``).  RG-LRU, MoE, the encoder-decoder
+and sharding wait (``ROADMAP.md``, Queue 1 item 6); asking for them
+raises ``NotImplementedError``.
 
 Parameters are plain dictionaries of tensors with one entry per layer
 (``params["blocks"]``), run by a plain loop: the reference stacks layers
 by period for ``jax.lax.scan``, which PyTorch's eager execution does not
-need.  ``params_from_numpy`` unstacks the reference's parameter tree
-into this layout, so both packages can run the same weights.
+need.  ``params_from_numpy`` (and ``train_state_from_numpy`` for a whole
+AdamW train state) unstacks the reference's tree into this layout, so
+both packages can run, and train, the same weights.
 
-Modes, as in the reference: ``forward`` (no state), ``prefill`` (runs
-the prompt and returns the decode state) and ``decode_step`` (one token
-against that state).  On CUDA tensors each time mix sends its WKV
-through the CUDA kernel (``kernels/wkv6``) unless ``use_wkv_kernel`` is
-off, which sends it through the plain chunked form, as CPU tensors
-always go.
+Modes, as in the reference: ``forward`` (no cache; carries gradients),
+``prefill`` (runs the prompt and returns the decode cache) and
+``decode_step`` (one token at position ``pos`` against that cache).
+Global attention keeps a (B, max_len) KV cache; ``local`` layers keep a
+ring of ``window`` slots (slot = pos % window).  ``kv_cache_dtype="int8"``
+stores K and V as int8 codes with a float16 scale per token and head.
+Both blocks run ``layers.attn_apply``, which writes into the cache it is
+given and returns it, where the reference returns a new cache.
+
+On CUDA tensors each RWKV time mix sends its WKV through the CUDA
+kernel (``kernels/wkv6``) unless ``use_wkv_kernel`` is off.  Attention,
+the FFN and the unembedding are plain matmuls and softmax, as they are
+plain einsums in the reference (``layers.py`` says how the scores keep
+float32 precision).
+
+Training (``lm_loss``, ``make_train_step``) differentiates every leaf of
+``params``, as the reference does; with ``sparse_ffn`` that includes the
+sparse FFN's signs, which the reference calls frozen but trains
+(``ROADMAP.md``, Queue 3).  ``apply_sparse_control`` runs Alg. 2 on each
+``*_theta`` leaf with draws the caller may pass; otherwise they come
+from a ``torch.Generator`` seeded from a CRC-32 of the leaf's place in
+the reference's tree, the layer and the step, so two processes draw
+alike (the reference's salted ``hash()`` does not).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -29,8 +49,18 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as NN
 from repro_torch.models import recurrent as RC
+from repro_torch.models.layers import AttnSpec
 
-PORTED_KINDS = (("rwkv", "rwkv_cm"),)
+MIXERS = ("attn", "local", "rwkv")
+CHANNELS = ("dense", "rwkv_cm")
+_UNPORTED = "see ROADMAP.md Queue 1 item 6"
+
+# LMConfig fields of parts that are not ported, with the only value the
+# port takes
+_UNPORTED_FIELDS = dict(n_experts=0, top_k=0, moe_d_ff=0,
+                        shared_expert=False, moe_capacity_factor=1.25,
+                        moe_ep=False, moe_ep_fsdp=False, d_rnn=0,
+                        seq_parallel=False)
 
 
 # ---------------------------------------------------------------------------
@@ -42,18 +72,52 @@ class LMConfig:
     name: str
     n_layers: int
     d_model: int
-    n_heads: int                        # head size is d_model // n_heads
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
     d_ff: int
     vocab: int
     # block pattern, cycled over post-prefix layers: (mixer, channel)
     pattern: Tuple[Tuple[str, str], ...] = (("attn", "dense"),)
     prefix: Tuple[Tuple[str, str], ...] = ()
+    ffn_kind: str = "swiglu"            # dense-FFN nonlinearity
     norm: str = "rms"                   # rms | ln
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    window: Optional[int] = None        # sliding window for "local"
     tie_embeddings: bool = False
+    # MoE, RG-LRU and sequence parallelism: not ported (only defaults)
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    shared_expert: bool = False
+    moe_capacity_factor: float = 1.25
+    moe_ep: bool = False
+    moe_ep_fsdp: bool = False
+    d_rnn: int = 0
+    # "none": token ids; "stub": precomputed (B, S, D) embeddings
+    frontend: str = "none"
     dtype: Any = torch.bfloat16
+    # SparseLUT fan-in-sparse FFN (Alg. 2 on the dense channel's up and
+    # gate projections); sparse_fan_in = F_o (0 -> d_model // 8)
+    sparse_ffn: bool = False
+    sparse_fan_in: int = 0
+    sparse_phase_T: int = 1000
+    kv_cache_dtype: str = "bf16"        # "bf16" (the model's dtype) | "int8"
+    seq_parallel: bool = False
     # WKV of CUDA tensors through the CUDA kernel (False: the plain
     # chunked form, the kernel's yardstick on the card)
     use_wkv_kernel: bool = True
+
+    def __post_init__(self):
+        for field, default in _UNPORTED_FIELDS.items():
+            if getattr(self, field) != default:
+                raise NotImplementedError(
+                    f"LMConfig.{field}={getattr(self, field)!r}: MoE, "
+                    f"RG-LRU and sequence parallelism are not ported yet "
+                    f"({_UNPORTED})")
+        if self.kv_cache_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}")
 
     @property
     def kinds(self) -> List[Tuple[str, str]]:
@@ -70,24 +134,46 @@ class LMConfig:
         """Whole periods after the prefix (the reference's scan length)."""
         return (self.n_layers - len(self.prefix)) // len(self.pattern)
 
+    @property
+    def tail_kinds(self) -> List[Tuple[str, str]]:
+        used = len(self.prefix) + self.n_scan_groups * len(self.pattern)
+        return self.kinds[used:]
+
+    def attn_spec(self, mixer: str) -> AttnSpec:
+        return AttnSpec(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
+            qkv_bias=self.qkv_bias, rope_theta=self.rope_theta,
+            causal=True,
+            window=self.window if mixer == "local" else None)
+
 
 def _check_kind(kind: Tuple[str, str]) -> None:
-    if tuple(kind) not in PORTED_KINDS:
+    mixer, channel = kind
+    if mixer not in MIXERS or channel not in CHANNELS \
+            or (channel == "rwkv_cm") != (mixer == "rwkv"):
         raise NotImplementedError(
-            f"block kind {kind} is not ported yet (ported: "
-            f"{PORTED_KINDS}); see ROADMAP.md Queue 1 item 8")
+            f"block kind {tuple(kind)} is not ported yet (mixers "
+            f"{MIXERS} with 'dense', or ('rwkv', 'rwkv_cm')); {_UNPORTED}")
 
 
 def param_count(cfg: LMConfig) -> Tuple[int, int]:
     """(total, active) parameter counts, as the reference counts them."""
-    D = cfg.d_model
+    D, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     total = cfg.vocab * D                                # embed
     if not cfg.tie_embeddings:
         total += D * cfg.vocab
     for kind in cfg.kinds:
         _check_kind(kind)
-        total += 5 * D * D + 2 * D * 64                  # proj + decay lora
-        total += 2 * D * cfg.d_ff + D * D                # channel mix
+        mixer, channel = kind
+        if mixer in ("attn", "local"):
+            total += D * H * hd + 2 * D * KH * hd + H * hd * D
+        else:
+            total += 5 * D * D + 2 * D * 64              # proj + decay lora
+        if channel == "dense":
+            total += (3 if cfg.ffn_kind == "swiglu" else 2) * D * cfg.d_ff
+        else:
+            total += 2 * D * cfg.d_ff + D * D            # channel mix
     return total, total
 
 
@@ -115,36 +201,79 @@ def block_init(generator: torch.Generator, cfg: LMConfig,
     """One block's weights on ``device`` (the card unless named)."""
     _check_kind(kind)
     device = resolve_device(device)
-    return {"norm1": _norm_init(cfg, cfg.d_model, device),
-            "norm2": _norm_init(cfg, cfg.d_model, device),
-            "rwkv": RC.rwkv_init(generator, cfg.d_model, cfg.n_heads,
-                                 cfg.d_ff, dtype=cfg.dtype, device=device)}
+    mixer, channel = kind
+    p = {"norm1": _norm_init(cfg, cfg.d_model, device),
+         "norm2": _norm_init(cfg, cfg.d_model, device)}
+    if mixer in ("attn", "local"):
+        p["attn"] = NN.attn_init(generator, cfg.attn_spec(mixer), cfg.dtype,
+                                 device)
+    else:
+        p["rwkv"] = RC.rwkv_init(generator, cfg.d_model, cfg.n_heads,
+                                 cfg.d_ff, dtype=cfg.dtype, device=device)
+    if channel == "dense":
+        p["ffn"] = NN.ffn_init(generator, cfg.d_model, cfg.d_ff,
+                               cfg.ffn_kind, cfg.dtype,
+                               sparse=cfg.sparse_ffn, device=device)
+    return p
 
 
 def block_cache_init(cfg: LMConfig, kind: Tuple[str, str], batch: int,
                      max_len: int, device: DeviceLike = None) -> dict:
-    """Decode-time state of one block (O(1) in ``max_len`` for RWKV), on
-    ``device`` (the card unless named)."""
+    """Decode-time state of one block on ``device`` (the card unless
+    named): a (batch, max_len) KV cache for ``attn``, a ring of
+    ``window`` slots for ``local``, the O(1) recurrent state for RWKV."""
     _check_kind(kind)
     device = resolve_device(device)
+    mixer, _ = kind
+    if mixer in ("attn", "local"):
+        return NN.attn_cache_init(cfg.attn_spec(mixer), batch, max_len,
+                                  cfg.dtype, device,
+                                  int8=cfg.kv_cache_dtype == "int8")
     return RC.rwkv_state_init(batch, cfg.d_model, cfg.n_heads, cfg.dtype,
                               device=device)
 
 
+def _slot_index(value, device) -> torch.Tensor:
+    """A one-element long index from a Python int (a fill, no host to
+    device copy) or a 0-d tensor."""
+    if isinstance(value, torch.Tensor):
+        return value.reshape(1).to(device=device, dtype=torch.long)
+    return torch.full((1,), int(value), dtype=torch.long, device=device)
+
+
 def block_apply(cfg: LMConfig, kind: Tuple[str, str], p: dict,
-                x: torch.Tensor, cache: Optional[dict]
+                x: torch.Tensor, positions: Optional[torch.Tensor],
+                cache: Optional[dict]
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One block.  ``cache`` None: forward, new cache None; given: the
-    prompt (S > 1) or one decode token (S == 1) continues from it."""
+    """One block.  Modes:
+
+    * ``cache`` None             -> forward, new cache None;
+    * ``cache`` given, S > 1     -> prefill: the cache is filled;
+    * ``cache`` given, S == 1    -> decode at ``positions`` (1,) against
+      the cache.
+
+    ``positions`` (S,) are the tokens' positions (the attention blocks
+    need them; RWKV does not).  An attention cache is written in place
+    and returned; an RWKV state is returned new.  (The reference also
+    returns MoE's auxiliary loss, always 0 without MoE.)"""
     _check_kind(kind)
+    mixer, channel = kind
     h = _norm_apply(cfg, p["norm1"], x)
-    a, new_mix = RC.rwkv_time_mix(p["rwkv"], cfg.n_heads, h, cache,
-                                  use_kernel=cfg.use_wkv_kernel)
+    if mixer in ("attn", "local"):
+        a, new_mix = NN.attn_apply(p["attn"], cfg.attn_spec(mixer), h,
+                                   positions, cache)
+    else:
+        a, new_mix = RC.rwkv_time_mix(p["rwkv"], cfg.n_heads, h, cache,
+                                      use_kernel=cfg.use_wkv_kernel)
     x = x + a
     h2 = _norm_apply(cfg, p["norm2"], x)
-    f, cm_new = RC.rwkv_channel_mix(p["rwkv"], h2, cache)
-    new_cache = {**new_mix, **cm_new} if cache is not None else None
-    return x + f, new_cache
+    if channel == "dense":
+        f = NN.ffn_apply(p["ffn"], cfg.ffn_kind, h2)
+    else:
+        f, cm_new = RC.rwkv_channel_mix(p["rwkv"], h2, cache)
+        if cache is not None:
+            new_mix = {**new_mix, **cm_new}
+    return x + f, (new_mix if cache is not None else None)
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +326,37 @@ def layers_from_stacked(tree: Dict[str, Any], cfg: LMConfig) -> List[Any]:
     return out
 
 
+def layers_to_stacked(layers: List[Any], cfg: LMConfig, stack) -> dict:
+    """The inverse of ``layers_from_stacked``: per-layer entries as the
+    reference's ``{"prefix", "stacks", "tail"}``, the entries of each
+    position in the period combined leaf by leaf with ``stack`` (a list
+    of leaves, one a group, -> one leaf)."""
+    n_pre, P, G = len(cfg.prefix), len(cfg.pattern), cfg.n_scan_groups
+
+    def combine(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: combine([n[k] for n in nodes]) for k in nodes[0]}
+        return stack(nodes)
+
+    stacks = [combine([layers[n_pre + g * P + j] for g in range(G)])
+              for j in range(P)] if G > 0 else []
+    return {"prefix": list(layers[:n_pre]), "stacks": stacks,
+            "tail": list(layers[n_pre + G * P:])}
+
+
+def reference_site(cfg: LMConfig, layer: int) -> Tuple[str, Optional[int]]:
+    """Where layer ``layer`` lives in the reference's parameter tree: its
+    path as the reference prints one (``['stacks']/[j]``), and its scan
+    group (None outside the stacks)."""
+    n_pre, P, G = len(cfg.prefix), len(cfg.pattern), cfg.n_scan_groups
+    if layer < n_pre:
+        return f"['prefix']/[{layer}]", None
+    j = layer - n_pre
+    if j < G * P:
+        return f"['stacks']/[{j % P}]", j // P
+    return f"['tail']/[{j - G * P}]", None
+
+
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":       # ml_dtypes; exact through float32
@@ -215,10 +375,11 @@ def _to_torch(node, device):
 
 def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig,
                       device: DeviceLike = None) -> dict:
-    """The reference's ``init_params`` tree, its leaves converted to
-    numpy, as the port's parameters: the scan stacks unstacked into one
-    entry per layer, every leaf in its own dtype on ``device`` (the card
-    unless named)."""
+    """The reference's ``init_params`` tree (or a tree of its shape, such
+    as AdamW's moments), its leaves converted to numpy, as the port's
+    parameters: the scan stacks unstacked into one entry per layer,
+    every leaf (``*_theta`` / ``*_sign`` included) in its own dtype on
+    ``device`` (the card unless named)."""
     device = resolve_device(device)
     blocks = layers_from_stacked(tree, cfg)
     if len(blocks) != cfg.n_layers:
@@ -230,9 +391,29 @@ def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig,
     return p
 
 
+def train_state_from_numpy(state: Dict[str, Any], cfg: LMConfig,
+                           device: DeviceLike = None) -> dict:
+    """The reference's LM train state ``{"params", "opt"}`` (AdamW's
+    ``OptState(step, mu, nu)``), leaves converted to numpy, as the
+    port's: params and both moments through ``params_from_numpy``."""
+    from repro_torch.optim.adamw import OptState
+
+    device = resolve_device(device)
+    opt = state["opt"]
+    return {"params": params_from_numpy(state["params"], cfg, device),
+            "opt": OptState(
+                step=torch.as_tensor(np.array(opt.step),
+                                     dtype=torch.int32).to(device),
+                mu=params_from_numpy(opt.mu, cfg, device),
+                nu=params_from_numpy(opt.nu, cfg, device))}
+
+
 def _embed(cfg: LMConfig, params: dict,
            inputs: torch.Tensor) -> torch.Tensor:
-    """Token ids (B, S) -> embeddings (B, S, D)."""
+    """Token ids (B, S) -> embeddings; a stub frontend's precomputed
+    (B, S, D) embeddings go straight through."""
+    if inputs.dim() == 3:
+        return inputs.to(cfg.dtype)
     return params["embed"]["table"][inputs.long()]
 
 
@@ -243,22 +424,45 @@ def _unembed(cfg: LMConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def _run_blocks(params: dict, cfg: LMConfig, x: torch.Tensor,
-                cache: Optional[dict]
+                positions: torch.Tensor, cache: Optional[dict],
+                remat: bool = False
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """Every block in layer order.  With ``remat`` (and gradients on)
+    each whole period after the prefix runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
+    its period body): its activations are recomputed in the backward
+    pass instead of kept."""
+    kinds, blocks = cfg.kinds, params["blocks"]
+    if cache is None and remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        def run(x, lo, hi):
+            for i in range(lo, hi):
+                x, _ = block_apply(cfg, kinds[i], blocks[i], x, positions,
+                                   None)
+            return x
+
+        n_pre, P = len(cfg.prefix), len(cfg.pattern)
+        end = n_pre + cfg.n_scan_groups * P
+        x = run(x, 0, n_pre)
+        for lo in range(n_pre, end, P):
+            x = checkpoint(run, x, lo, lo + P, use_reentrant=False)
+        return run(x, end, cfg.n_layers), None
     new_blocks = []
-    for i, (kind, bp) in enumerate(zip(cfg.kinds, params["blocks"])):
+    for i, (kind, bp) in enumerate(zip(kinds, blocks)):
         bc = cache["blocks"][i] if cache is not None else None
-        x, nc = block_apply(cfg, kind, bp, x, bc)
+        x, nc = block_apply(cfg, kind, bp, x, positions, bc)
         new_blocks.append(nc)
     return x, ({"blocks": new_blocks} if cache is not None else None)
 
 
-@torch.no_grad()
-def forward(params: dict, cfg: LMConfig,
-            inputs: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) -> logits float32
-    (B, S, V)."""
-    x, _ = _run_blocks(params, cfg, _embed(cfg, params, inputs), None)
+def forward(params: dict, cfg: LMConfig, inputs: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
+    """Full-sequence forward: tokens (B, S) or stub embeddings (B, S, D)
+    -> logits float32 (B, S, V).  Carries gradients."""
+    x = _embed(cfg, params, inputs)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = _run_blocks(params, cfg, x, positions, None, remat)
     x = _norm_apply(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x)
 
@@ -269,20 +473,192 @@ def prefill(params: dict, cfg: LMConfig, inputs: torch.Tensor,
     """Run the prompt (B, S) and build the decode state.  Returns
     (last-token logits (B, V), cache)."""
     x = _embed(cfg, params, inputs)
+    positions = torch.arange(x.shape[1], device=x.device)
     cache = init_cache(cfg, x.shape[0], max_len, x.device)
-    x, new_cache = _run_blocks(params, cfg, x, cache)
+    x, new_cache = _run_blocks(params, cfg, x, positions, cache)
     xl = _norm_apply(cfg, params["final_norm"], x[:, -1:])
     return _unembed(cfg, params, xl)[:, 0], new_cache
 
 
 @torch.no_grad()
 def decode_step(params: dict, cfg: LMConfig, cache: dict,
-                token: torch.Tensor, pos: int
-                ) -> Tuple[torch.Tensor, dict]:
-    """One-token decode: token (B, 1) at position ``pos`` (which the
-    recurrent state does not need; kept for the attention blocks to
-    come).  Returns (logits (B, V), new cache)."""
+                token: torch.Tensor, pos) -> Tuple[torch.Tensor, dict]:
+    """One-token decode: token (B, 1) (or stub (B, 1, D)) at position
+    ``pos`` (an int, or a 0-d tensor).  Returns (logits (B, V), cache)."""
     x = _embed(cfg, params, token)
-    x, new_cache = _run_blocks(params, cfg, x, cache)
+    positions = _slot_index(pos, x.device)
+    x, new_cache = _run_blocks(params, cfg, x, positions, cache)
     x = _norm_apply(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x)[:, 0], new_cache
+
+
+# ---------------------------------------------------------------------------
+# loss / train step
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
+                 ) -> torch.Tensor:
+    """Per-token NLL in float32: logsumexp minus the label's logit (a
+    gather; the reference selects it with an iota mask, the same
+    number)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = torch.gather(lf, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    return lse - picked
+
+
+def lm_loss(params: dict, cfg: LMConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, remat: bool = True
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Mean next-token NLL and its metrics.  (The reference adds MoE's
+    auxiliary loss, which waits with MoE.)"""
+    logits = forward(params, cfg, tokens, remat=remat)
+    loss = torch.mean(softmax_xent(logits, labels))
+    return loss, {"loss": loss}
+
+
+def sparsity_config(cfg: LMConfig):
+    from repro_torch.core.sparse_train import SparsityConfig
+
+    return SparsityConfig(
+        target_fan_in=cfg.sparse_fan_in or max(cfg.d_model // 8, 1),
+        phase_boundary=cfg.sparse_phase_T)
+
+
+def theta_leaves(params: dict) -> List[Tuple[int, str]]:
+    """(layer, name) of every ``*_theta`` leaf of the sparse FFN."""
+    return [(i, name) for i, bp in enumerate(params["blocks"])
+            for name in sorted(bp.get("ffn", {})) if name.endswith("_theta")]
+
+
+def control_seed(cfg: LMConfig, layer: int, name: str, step: int) -> int:
+    """A seed that is the same in every process: CRC-32 of the leaf's
+    path in the reference's tree, the layer and the step."""
+    site, _ = reference_site(cfg, layer)
+    key = f"{site}/['ffn']/['{name}']|layer {layer}|step {int(step)}"
+    return zlib.crc32(key.encode())
+
+
+def control_draws(cfg: LMConfig, params: dict, step
+                  ) -> Dict[Tuple[int, str], Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+    """Each theta leaf's (normal, uniform) draws for control step
+    ``step``, from a generator on the leaf's device seeded by
+    ``control_seed`` (reads ``step`` on the host)."""
+    step = int(step)
+    out = {}
+    for i, name in theta_leaves(params):
+        theta = params["blocks"][i]["ffn"][name]
+        gen = torch.Generator(device=theta.device).manual_seed(
+            control_seed(cfg, i, name, step))
+        normal = torch.randn(theta.shape, generator=gen,
+                             device=theta.device, dtype=torch.float32)
+        u = torch.rand(theta.shape, generator=gen, device=theta.device,
+                       dtype=torch.float32)
+        out[(i, name)] = (normal, u)
+    return out
+
+
+def apply_sparse_control(params: dict, cfg: LMConfig, step, lr: float,
+                         draws: Optional[Dict] = None) -> dict:
+    """SparseLUT on the LM: the paper's Alg.-2 controller on every
+    ``*_theta`` FFN leaf (prune by sign flip and penalty, regrow, hold
+    each hidden unit's fan-in to F_o), with theta-recency regrowth as in
+    the reference (no gradient is passed).  ``draws[(layer, name)] =
+    (normal, u)`` are the leaf's draws (``control_draws`` makes them
+    when not given).  Returns new params; the given ones are left as
+    they were."""
+    from repro_torch.core.sparse_train import sparse_control
+
+    leaves = theta_leaves(params)
+    if not leaves:
+        return params
+    scfg = sparsity_config(cfg)
+    if draws is None:
+        draws = control_draws(cfg, params, step)
+    blocks = list(params["blocks"])
+    for i, name in leaves:
+        normal, u = draws[(i, name)]
+        ffn = dict(blocks[i]["ffn"])
+        ffn[name] = sparse_control(ffn[name], normal, u, step, scfg, lr)
+        blocks[i] = {**blocks[i], "ffn": ffn}
+    return {**params, "blocks": blocks}
+
+
+def _tree_rebuild(tree, leaves):
+    from repro_torch.optim.adamw import tree_map
+
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def make_train_step(cfg: LMConfig, optimizer, remat: bool = True,
+                    grad_clip: float = 1.0, lr_for_sparse: float = 1e-3,
+                    accum: int = 1):
+    """-> (init_state, step).  ``init_state(generator, device=None)``
+    draws ``{params, opt}`` on ``device`` (the card unless named);
+    ``step(state, batch, draws=None)`` -> (new state, metrics).
+
+    The step returns new tensors and leaves the state it is given as it
+    was (the reference's ``Trainer`` rolls back by keeping it).  It
+    differentiates every leaf of ``params``, clips the global norm,
+    applies the optimizer and, with ``sparse_ffn``, the sparse control
+    at the optimizer's new step (``draws`` as ``apply_sparse_control``
+    takes them).  ``accum > 1`` splits the batch into that many
+    micro-batches and averages their gradients, summed in float32;
+    ``remat`` recomputes each period's activations in the backward pass.
+    Metrics are device tensors: ``loss``, ``grad_norm``.
+
+    The WKV kernel has no backward, so RWKV blocks train through the
+    plain chunked WKV: the step runs ``cfg`` with ``use_wkv_kernel``
+    off."""
+    from repro_torch.optim.adamw import (apply_updates, clip_by_global_norm,
+                                         tree_leaves, tree_map)
+
+    opt_init, opt_update = optimizer
+    cfg = dataclasses.replace(cfg, use_wkv_kernel=False)
+
+    def init_state(generator: torch.Generator, device: DeviceLike = None):
+        params = init_params(cfg, generator, device)
+        return {"params": params, "opt": opt_init(params)}
+
+    def grads_of(params, batch):
+        req = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        with torch.enable_grad():
+            total, metrics = lm_loss(_tree_rebuild(params, req), cfg,
+                                     batch["tokens"], batch["labels"],
+                                     remat=remat)
+            grads = torch.autograd.grad(total, req, allow_unused=True)
+        grads = [torch.zeros_like(r) if g is None else g
+                 for r, g in zip(req, grads)]
+        return ({k: v.detach() for k, v in metrics.items()},
+                _tree_rebuild(params, grads))
+
+    def step(state, batch, draws=None):
+        params = state["params"]
+        if accum <= 1:
+            metrics, grads = grads_of(params, batch)
+        else:
+            B = batch["tokens"].shape[0]
+            grads = tree_map(lambda p: (p * 0).to(torch.float32), params)
+            ms = []
+            for a in range(accum):
+                mb = {k: v[a * (B // accum):(a + 1) * (B // accum)]
+                      for k, v in batch.items()}
+                m, g = grads_of(params, mb)
+                grads = tree_map(torch.add, grads, g)
+                ms.append(m)
+            grads = tree_map(lambda g: g / accum, grads)
+            metrics = {k: torch.mean(torch.stack([m[k] for m in ms]))
+                       for k in ms[0]}
+        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        updates, new_opt = opt_update(grads, state["opt"], params)
+        new_params = apply_updates(params, updates)
+        if cfg.sparse_ffn:
+            new_params = apply_sparse_control(new_params, cfg, new_opt.step,
+                                              lr_for_sparse, draws)
+        metrics = dict(metrics)
+        metrics["grad_norm"] = gnorm
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return init_state, step

@@ -1,5 +1,5 @@
 """RWKV6 (Finch) time mix and channel mix (port of the RWKV half of
-``repro.models.recurrent``; RG-LRU waits, ``ROADMAP.md`` Queue 1 item 8).
+``repro.models.recurrent``; RG-LRU waits, ``ROADMAP.md`` Queue 1 item 6).
 
 The WKV recurrence, per (batch, head), state S in R^{K x V}:
 
@@ -148,8 +148,10 @@ def rwkv_time_mix(p: dict, n_heads: int, x: torch.Tensor,
                   use_kernel: bool = True) -> Tuple[torch.Tensor, dict]:
     """RWKV6 attention replacement.  x: (B, S, D).  With ``use_kernel``
     the WKV goes through ``kernels.wkv6.ops.wkv6`` (the CUDA kernel for
-    CUDA tensors, ``wkv_chunked_ref`` for CPU ones); without it,
-    through ``wkv_chunked_ref`` on any device."""
+    CUDA tensors, ``wkv_chunked_ref`` for CPU ones); without it through
+    ``wkv_chunked_ref`` on any device.  The kernel has no backward: asked
+    for it while gradients flow, this raises (a train step passes
+    ``use_kernel=False``)."""
     B, S, D = x.shape
     hd = D // n_heads
     last = state["x_tm"] if state is not None else None
@@ -169,6 +171,11 @@ def rwkv_time_mix(p: dict, n_heads: int, x: torch.Tensor,
 
     s0 = state["S"] if state is not None else None
     if use_kernel:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (r, k, v, logw)):
+            raise RuntimeError(
+                "the WKV kernel has no backward: pass use_kernel=False "
+                "(LMConfig.use_wkv_kernel) to differentiate the time mix")
         # imported here: kernels/wkv6/ref.py imports this module
         from repro_torch.kernels.wkv6 import ops as wkv_ops
         o, s_end = wkv_ops.wkv6(r, k, v, logw, p["u"], s0)

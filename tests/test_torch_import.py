@@ -31,7 +31,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 36, proc.stdout
+    assert n_modules >= 60, proc.stdout
 
 
 WORKER_PROBE = """
@@ -121,4 +121,43 @@ def test_search_modules_and_core_exports_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", SEARCH_PROBE], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("[]"), proc.stdout
+
+
+LM_PROBE = """
+import importlib, runpy, sys
+sys.path.insert(0, sys.argv[1])
+for name in ("torch_quickstart", "torch_mnist_sparselut", "torch_lut_serve",
+             "torch_lm_sparse_train"):
+    importlib.import_module(name)
+for mod in ("repro_torch.launch.train", "repro_torch.launch.serve"):
+    sys.argv = [mod, "--help"]
+    try:
+        runpy.run_module(mod, run_name="__main__")
+    except SystemExit as e:
+        if e.code != 0:
+            raise
+import repro_torch.models.layers, repro_torch.models.lm
+import repro_torch.models.registry, repro_torch.optim.schedules
+import repro_torch.data.tokens, repro_torch.checkpoint.checkpoint
+import repro_torch.runtime.trainer, repro_torch.runtime.straggler
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro")
+             or m.startswith(("jax.", "jaxlib.", "repro.")))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_lm_modules_train_cli_and_examples_import_no_jax():
+    """The attention LM, its training (``models``, ``optim.schedules``,
+    ``data.tokens``, ``checkpoint``, ``runtime``), the train and serve
+    CLIs started as their own programs (``--help``) and the four
+    ``examples/torch_*.py`` load neither JAX nor anything of ``repro``."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", LM_PROBE,
+                           os.path.join(ROOT, "examples")], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "--sparse-ffn" in proc.stdout and "--kv-int8" in proc.stdout
     assert proc.stdout.strip().endswith("[]"), proc.stdout

@@ -123,14 +123,21 @@ def test_param_count_matches_reference():
 
 
 def test_unported_kinds_and_archs_raise():
-    cfg = dataclasses.replace(TCFG.smoke_config(),
-                              pattern=(("attn", "dense"),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLM.param_count(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLM.init_cache(cfg, 1, 8, "cpu")
-    with pytest.raises(KeyError, match="not ported"):
-        TR.get_config("qwen2.5-3b")
+    """RG-LRU and MoE blocks, their config fields and the architectures
+    that need them (or the encoder-decoder) raise, naming the queue."""
+    for kind in (("rglru", "dense"), ("attn", "moe")):
+        cfg = dataclasses.replace(TCFG.smoke_config(), pattern=(kind,))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TLM.param_count(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TLM.init_cache(cfg, 1, 8, "cpu")
+    for field in ("n_experts", "d_rnn"):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            dataclasses.replace(TCFG.smoke_config(), **{field: 8})
+    for arch in ("kimi-k2-1t-a32b", "granite-moe-1b-a400m",
+                 "recurrentgemma-9b", "whisper-tiny"):
+        with pytest.raises(KeyError, match="not ported"):
+            TR.get_config(arch)
 
 
 def test_lm_entry_points_need_a_card_unless_told(monkeypatch):
@@ -199,3 +206,30 @@ def test_serve_lm_greedy_matches_its_own_logits():
         assert torch.equal(res.tokens[:, i], res.logits[i].argmax(-1))
     assert all(torch.isfinite(lg).all() for lg in res.logits)
     assert res.tokens_per_s > 0
+
+
+def test_wkv_kernel_refuses_gradients_and_the_train_step_turns_it_off():
+    """The WKV kernel has no backward: a time mix asked for it while
+    gradients flow raises (on any device, so the card never falls back
+    unseen), and the LM train step runs its config with the kernel off,
+    so an RWKV model trains through the plain chunked WKV."""
+    from repro_torch.optim.adamw import tree_leaves
+    tcfg = dataclasses.replace(TCFG.smoke_config(), dtype=torch.float32,
+                               n_layers=1)
+    assert tcfg.use_wkv_kernel
+    init_state, step = TR.make_train_step(tcfg, remat=False)
+    state = init_state(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(_tokens(tcfg.vocab)[0][:, :8].astype(np.int64))
+    p = state["params"]["blocks"][0]
+    p = {**p, "rwkv": {**p["rwkv"],
+                       "w_r": p["rwkv"]["w_r"].detach().requires_grad_()}}
+    x = TLM._embed(tcfg, state["params"], tokens)
+    with pytest.raises(RuntimeError, match="no backward"):
+        TLM.block_apply(tcfg, tcfg.kinds[0], p, x, None, None)
+    plain = dataclasses.replace(tcfg, use_wkv_kernel=False)
+    y, _ = TLM.block_apply(plain, tcfg.kinds[0], p, x, None, None)
+    assert y.requires_grad
+    new, m = step(state, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+    assert np.isfinite(float(m["loss"])) and set(m) == {"loss", "grad_norm"}
+    assert any(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(state["params"]), tree_leaves(new["params"])))
