@@ -138,6 +138,39 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              ``torch_mnist_sparselut.py`` and ``torch_lut_serve.py`` (0
              failed, 0 dropped) on the card, kernel 1 counted.
 
+15. lm_moe — granite-moe-1b-a400m at full width (24 layers, d_model
+             1024, 16 heads with kv 8 x 64, 32 experts top 8 of d_ff 512,
+             vocab 49155, bf16): served through ``launch.serve`` (B=4 x
+             512 prefill, 32 greedy decode steps); one MoE block against
+             an independent float32 loop over its experts (same routes
+             and drops); two prefills equal bit for bit (no float
+             atomics), their dropped assignments printed; bf16 against
+             float32 block by block (over the tokens routed alike) and
+             whole; float32 at capacity factor 16, prefill + decode
+             against one forward on the rows routed alike; a trace (the
+             dispatch's sorts, gathers and copies).  Then kimi-k2 at its
+             published widths cut to 2 layers (dense layer 0, one MoE
+             layer of 384 experts and the shared expert): B=2 x 128
+             prefill and 8 decode steps, the MoE block against the
+             float32 loop.
+16. lm_rglru — recurrentgemma-9b at full width (38 layers: 26 RG-LRU and
+             12 local attention with a 2048-slot ring, d_model 4096, MQA
+             kv 1 x 256, d_rnn 4096, vocab 256000, bf16): served B=4 x 512
+             + 32 steps, then B=1 x 2304 + 32 steps (the ring wraps);
+             every decay at its floor finite; bf16 against float32 block
+             by block and whole; float32 prefill + decode against one
+             forward, and 64 decode steps' state against a 64-token
+             prefill's; a trace and the float32 gate products' time.
+17. encdec — whisper-tiny at full width (4 + 4 layers, d_model 384,
+             bf16): the registry's prefill (encoder over B=4 x 1500
+             frames, cross K/V) and 32 greedy decode steps; float32
+             decode against ``decode_train``; bf16 against float32;
+             ``serve --arch whisper-tiny`` exits with the reference's
+             message.  Then ``launch.train`` for 20 steps each at the
+             reference's smoke configs of granite-moe, recurrentgemma and
+             whisper (``--seq 32``): finite loss, checkpoints, MoE aux.
+             Each of the three phases prints its peak device memory.
+
 ``python3 chip_smoke.py --phases lm_attn,lm_train`` runs only the named
 phases (after ``device``) and prints no result line.
 
@@ -1817,7 +1850,7 @@ def _block_inputs(cfg, params, toks, LM):
     xs = []
     for i, (kind, bp) in enumerate(zip(cfg.kinds, params["blocks"])):
         xs.append(x)
-        x, _ = LM.block_apply(cfg, kind, bp, x, None, cache["blocks"][i])
+        x, _, _ = LM.block_apply(cfg, kind, bp, x, None, cache["blocks"][i])
     return xs
 
 
@@ -1901,14 +1934,14 @@ def phase_lm(dev, results, smoke=False, B=4, P=512, GEN=32):
     states = []
     for i, (kind, bp) in enumerate(zip(cfg.kinds, params["blocks"])):
         zero = LM.block_cache_init(cfg, kind, B, P, dev)
-        yk, ck = LM.block_apply(cfg, kind, bp, xs[i], None, zero)
-        yp, cp = LM.block_apply(plain, kind, bp, xs[i], None, zero)
+        yk, ck, _ = LM.block_apply(cfg, kind, bp, xs[i], None, zero)
+        yp, cp, _ = LM.block_apply(plain, kind, bp, xs[i], None, zero)
         blk_rel = max(blk_rel, _rel_err(yk, yp)[1], _state_rel(ck, cp))
         states.append(ck)
     x = LM._embed(cfg, params, res.tokens[:, :1])
     for i, (kind, bp) in enumerate(zip(cfg.kinds, params["blocks"])):
-        yk, ck = LM.block_apply(cfg, kind, bp, x, None, states[i])
-        yp, cp = LM.block_apply(plain, kind, bp, x, None, states[i])
+        yk, ck, _ = LM.block_apply(cfg, kind, bp, x, None, states[i])
+        yp, cp, _ = LM.block_apply(plain, kind, bp, x, None, states[i])
         blk_rel = max(blk_rel, _rel_err(yk, yp)[1], _state_rel(ck, cp))
         x = yk
     del xs, states
@@ -1965,11 +1998,11 @@ def phase_lm(dev, results, smoke=False, B=4, P=512, GEN=32):
     xs = _block_inputs(cfg, params, toks, LM)
     state_rel = 0.0
     for i, (kind, bp) in enumerate(zip(cfg.kinds, params["blocks"])):
-        _, cp = LM.block_apply(cfg, kind, bp, xs[i], None,
+        _, cp, _ = LM.block_apply(cfg, kind, bp, xs[i], None,
                                LM.block_cache_init(cfg, kind, B, 64, dev))
         cd = LM.block_cache_init(cfg, kind, B, 64, dev)
         for t in range(64):
-            _, cd = LM.block_apply(cfg, kind, bp, xs[i][:, t:t + 1], None,
+            _, cd, _ = LM.block_apply(cfg, kind, bp, xs[i][:, t:t + 1], None,
                                    cd)
         state_rel = max(state_rel, _state_rel(cd, cp))
     del xs
@@ -2069,7 +2102,9 @@ def _argmax_agree(got, want, bound):
     clear = (top2[..., 0] - top2[..., 1]) > 2 * bound
     same = got.float().argmax(-1) == w.argmax(-1)
     n = int(clear.sum())
-    return (float(same[clear].float().mean()) if n else 1.0), n
+    # counted on the host: a float32 mean on the card multiplies the sum
+    # by a rounded 1/n, and 110 agreeing rows came out as 0.99999994
+    return (int(same[clear].sum()) / n if n else 1.0), n
 
 
 def phase_lm_attn(dev, results, smoke=False, B=4, P=512, GEN=32):
@@ -2139,8 +2174,8 @@ def phase_lm_attn(dev, results, smoke=False, B=4, P=512, GEN=32):
     pos = torch.arange(P, device=dev)
     blk = 0.0
     for kind, bp, bp32 in zip(cfg.kinds, params["blocks"], p32["blocks"]):
-        y16, _ = LM.block_apply(cfg, kind, bp, x, pos, None)
-        y32, _ = LM.block_apply(c32, kind, bp32, x.float(), pos, None)
+        y16, _, _ = LM.block_apply(cfg, kind, bp, x, pos, None)
+        y32, _, _ = LM.block_apply(c32, kind, bp32, x.float(), pos, None)
         blk = max(blk, _rel_err(y16, y32)[1])
         x = y16
     del x, y16, y32
@@ -2168,7 +2203,7 @@ def phase_lm_attn(dev, results, smoke=False, B=4, P=512, GEN=32):
     # forward over the same tokens, position by position
     toks = serve.make_prompt(cfg, B, 64 + 16, seed=2, device=dev)
     with torch.no_grad():
-        full = LM.forward(p32, c32, toks)
+        full, _ = LM.forward(p32, c32, toks)
     lp, cache = LM.prefill(p32, c32, toks[:, :64], 64 + 16)
     f32 = [_rel_err(lp, full[:, 63])[1]]
     for t in range(64, 64 + 16):
@@ -2378,7 +2413,8 @@ def phase_lm_train(dev, results, smoke=False, steps=LM_TRAIN_STEPS,
     with tempfile.TemporaryDirectory(prefix="chip-smoke-lm-") as tmp:
         tr = Trainer(TrainerConfig(ckpt_dir=tmp, ckpt_every=LM_CKPT_EVERY,
                                    keep=2),
-                     train_step, _tree_to(start, dev), failure_hook=hook)
+                     train_step, _tree_to(start, dev), failure_hook=hook,
+                     layout=LM.checkpoint_layout(cfg))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tr.run(ex.batches(cfg, B, S, dev), steps, log_every=1)
@@ -2455,7 +2491,7 @@ def phase_lm_train(dev, results, smoke=False, steps=LM_TRAIN_STEPS,
         # (3) a new trainer resumes from the directory, bit for bit
         fresh = init_state(torch.Generator(device=dev).manual_seed(1), dev)
         tr2 = Trainer(TrainerConfig(ckpt_dir=tmp, ckpt_every=LM_CKPT_EVERY),
-                      step, fresh)
+                      step, fresh, layout=LM.checkpoint_layout(cfg))
         check(tr2.try_resume() and tr2.step == steps,
               "[lm_train] no resume to the saved step")
         same = all(torch.equal(a, b) for a, b in
@@ -2583,6 +2619,718 @@ def phase_examples(dev, results, mnist_steps=30, serve_steps=40,
     return {k: counts.get(k, 0) for k in LUT_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# the last model families: MoE, the RG-LRU hybrid, the encoder-decoder
+# ---------------------------------------------------------------------------
+
+# Tolerances of [lm_moe], [lm_rglru] and [encdec], each a max error
+# relative to the largest magnitude of what it is held to (``_rel_err``):
+# - one MoE block in bf16 against an independent float32 loop over the
+#   experts (each expert on exactly its tokens, at its capacity rank),
+#   same bf16 input: the block's bf16 roundings (unit roundoff 2^-9 at
+#   the expert products, the gate multiply and k sequential adds);
+LM_MOE_EXPERT_TOL = 2e-2
+# - bf16 block by block against the same weights in float32, each block
+#   fed the same (bf16) input, as [lm_attn]; for an MoE block over the
+#   tokens whose routes (top-k set and kept slots) agree in both dtypes,
+#   at most LM_MOE_FLIP_SHARE of a block's tokens routed otherwise (a
+#   near tie between the k-th and k+1-th expert that rounding decides);
+LM_FAMILY_BLOCK_TOL = 5e-2
+LM_MOE_FLIP_SHARE = 0.15
+# - the whole bf16 model against float32 (prefill and every decode
+#   step): granite's routes part at near ties in every layer, each a
+#   swapped expert of a token (its gate about 1/8), so the logits part
+#   more than a dense model's (H100 runs read 2.971e-02 and 5.608e-02;
+#   the limit was 0.3 before those readings); recurrentgemma and whisper
+#   as [lm_attn];
+LM_MOE_BF16_TOL = 0.15
+LM_RGLRU_BF16_TOL = 0.1
+ENCDEC_BF16_TOL = 0.08
+# - float32, prefill then decode steps against one forward (and, for
+#   the RG-LRU, 64 decode steps' state against a 64-token prefill's):
+#   the same float32 arithmetic in other shapes, TF32 off; for an MoE
+#   model over the batch rows whose routes agree at every position and
+#   layer (a route decided by a float32 near tie parts a row); H100 runs
+#   read 1.2e-06 to 3.9e-06 (the limit was 1e-3 before those readings);
+LM_FAMILY_F32_TOL = 1e-4
+
+
+def _phase_start(tag):
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cuda.matmul.allow_tf32 = False    # float32 checks
+    return time.perf_counter()
+
+
+def _phase_end(tag, out, results, t_phase):
+    import torch
+    torch.cuda.empty_cache()
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {out['phase_s']:.1f} s, max memory allocated "
+        f"{out['max_memory_allocated_gb']:.2f} GB")
+    results[f"_{tag}"] = out
+
+
+def _log_config(tag, cfg, params, init_s):
+    n = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[{tag}] {cfg.name}: {cfg}; {n} weights ({nbytes / 1e9:.2f} GB) "
+        f"drawn on the card in {init_s:.2f} s")
+    return n
+
+
+def _serve_and_check(tag, serve, params, cfg, prompt, gen):
+    """``serve_lm`` (the main path) -> its result; all logits finite."""
+    import torch
+    res = serve.serve_lm(params, cfg, prompt, gen=gen, keep_logits=True)
+    check(all(bool(torch.isfinite(lg).all()) for lg in res.logits),
+          f"[{tag}] non-finite logits")
+    B, P = prompt.shape
+    log(f"[{tag}] served B={B} x {P}-token prefill + {gen} greedy decode "
+        f"steps: prefill {res.prefill_s * 1e3:.2f} ms, decode "
+        f"{res.decode_s / gen * 1e3:.3f} ms/token step, "
+        f"{res.tokens_per_s:.1f} tokens/s; first tokens "
+        f"{res.tokens[0, :8].tolist()}")
+    return res
+
+
+def _whole_model(R, c, p, prompt, feed):
+    """Prefill logits, then each decode step's, fed ``feed``."""
+    P, gen = prompt.shape[1], feed.shape[1]
+    logits, cache = R.make_prefill_step(c, P + gen)(p, prompt)
+    seq = [logits]
+    step = R.make_serve_step(c)
+    for i in range(gen):
+        logits, cache = step(p, cache, feed[:, i:i + 1], P + i)
+        seq.append(logits)
+    return seq
+
+
+def _bf16_vs_f32(tag, R, cfg, params, c32, p32, prompt, res):
+    """The whole bf16 model against float32 over the served tokens ->
+    (relative errors, argmax agreement, clear rows)."""
+    import torch
+    seq32 = _whole_model(R, c32, p32, prompt, res.tokens)
+    rels = [_rel_err(a, b)[1] for a, b in zip(res.logits, seq32)]
+    agree, n_clear = _argmax_agree(
+        torch.stack(res.logits), torch.stack(seq32),
+        max(rels) * max(float(s.abs().max()) for s in seq32))
+    check(agree == 1.0, f"[{tag}] bf16 argmax differs on a clear row")
+    return rels, agree, n_clear
+
+
+class _Routes:
+    """Records what every ``moe_apply`` routes while it is entered:
+    each call's top-k sets (sorted expert ids, (T, k)) and which
+    assignments kept a slot (in the same order)."""
+
+    def __init__(self, NN):
+        self.NN, self.calls = NN, []
+
+    def __enter__(self):
+        import torch
+        NN = self.NN
+        self._route, self._dispatch = NN.moe_route, NN.moe_dispatch
+
+        def route(p, s, xt):
+            out = self._route(p, s, xt)
+            self.calls.append([out[1]])
+            return out
+
+        def dispatch(s, eids, cap):
+            out = self._dispatch(s, eids, cap)
+            order = torch.argsort(eids, dim=-1)
+            self.calls[-1] = [eids.gather(1, order),
+                              out[3].gather(1, order)]
+            return out
+
+        NN.moe_route, NN.moe_dispatch = route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.NN.moe_route, self.NN.moe_dispatch = self._route, self._dispatch
+
+    def keys(self, i):
+        """(T,) a token's route as one comparable row: expert ids, then
+        kept flags."""
+        import torch
+        e, k = self.calls[i]
+        return torch.cat([e, k.long()], dim=-1)
+
+
+def moe_loop_f32(p, s, x, no_drop=False):
+    """The MoE block as a plain float32 loop over experts, independent of
+    ``moe_apply``: route by ``torch.topk`` of the float32 router, then
+    for each expert its tokens in token order, the first ``cap`` of them
+    kept (``moe_capacity``), through the expert's SwiGLU with its weights
+    upcast (only the experts some token chose).  -> (y float32 (B, S, D),
+    kept (T, k) in top-k order, eids (T, k))."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers as NN
+    B, S, D = x.shape
+    T = B * S
+    xt = x.reshape(T, D).float()
+    probs = torch.softmax(xt @ p["router"]["w"], dim=-1)
+    gates, eids = torch.topk(probs, s.top_k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    cap = NN.moe_capacity(s, T, no_drop)
+    kept = torch.zeros_like(eids, dtype=torch.bool)
+    y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for e in torch.unique(eids).tolist():
+        tok, j = torch.nonzero(eids == e, as_tuple=True)   # token order
+        tok, j = tok[:cap], j[:cap]
+        kept[tok, j] = True
+        w = {n: p["experts"][n][e].float() for n in ("w_in", "w_gate",
+                                                     "w_out")}
+        rows = xt[tok]
+        h = F.silu(rows @ w["w_gate"]) * (rows @ w["w_in"])
+        y[tok] += gates[tok, j, None] * (h @ w["w_out"])
+    if "shared" in p:
+        sh = {n: t.float() for n, t in p["shared"].items()}
+        y += NN.ffn_apply(sh, "swiglu", xt)
+    return y.reshape(B, S, D), kept, eids
+
+
+def _moe_block_check(tag, NN, cfg, bp, x):
+    """One MoE block's channel on the card against ``moe_loop_f32`` at the
+    prefill's capacity -> (relative error, dropped assignments)."""
+    import torch
+    s = cfg.moe_spec()
+    with _Routes(NN) as routes:
+        y, _ = NN.moe_apply(bp["moe"], s, x)
+    y32, kept, eids = moe_loop_f32(bp["moe"], s, x)
+    e_sorted, keep_sorted = routes.calls[0]
+    order = torch.argsort(eids, dim=-1)
+    same = (torch.equal(e_sorted, eids.gather(1, order))
+            and torch.equal(keep_sorted, kept.gather(1, order)))
+    rel = _rel_err(y, y32)[1]
+    dropped = int((~kept).sum())
+    log(f"[{tag}] MoE block ({s.n_experts} experts, top {s.top_k}"
+        f"{', shared expert' if s.shared_expert else ''}) on "
+        f"{x.shape[0]} x {x.shape[1]} tokens against a float32 loop over "
+        f"its experts: max error relative to scale {rel:.3e} (tolerance "
+        f"{LM_MOE_EXPERT_TOL}); capacity "
+        f"{NN.moe_capacity(s, x.shape[0] * x.shape[1])}, {dropped} of "
+        f"{kept.numel()} assignments dropped; same routes and drops: "
+        f"{same}")
+    check(same, f"[{tag}] the MoE block routes or drops otherwise than "
+          f"the float32 loop")
+    check(rel <= LM_MOE_EXPERT_TOL,
+          f"[{tag}] the MoE block parts from the float32 loop")
+    return rel, dropped
+
+
+def _blocks_bf16_vs_f32(tag, LM, NN, cfg, params, c32, p32, prompt):
+    """Each block in bf16 against float32 on the same bf16 input (the
+    prefill's residual stream) -> (max relative error over the tokens
+    routed alike, worst share of tokens routed otherwise)."""
+    import torch
+    x = LM._embed(cfg, params, prompt)
+    pos = torch.arange(prompt.shape[1], device=prompt.device)
+    worst, flip = 0.0, 0.0
+    for kind, bp, bp32 in zip(cfg.kinds, params["blocks"], p32["blocks"]):
+        with _Routes(NN) as routes:
+            y16, _, _ = LM.block_apply(cfg, kind, bp, x, pos, None)
+            y32, _, _ = LM.block_apply(c32, kind, bp32, x.float(), pos, None)
+        if routes.calls:
+            alike = (routes.keys(0) == routes.keys(1)).all(-1)
+            flip = max(flip, 1.0 - float(alike.float().mean()))
+            alike = alike.reshape(x.shape[:2])
+            worst = max(worst, _rel_err(y16[alike], y32[alike])[1])
+        else:
+            worst = max(worst, _rel_err(y16, y32)[1])
+        x = y16
+    log(f"[{tag}] bf16 vs the same weights in float32, each block on the "
+        f"same inputs (prefill): max error relative to scale {worst:.3e} "
+        f"(tolerance {LM_FAMILY_BLOCK_TOL})"
+        + (f" over the tokens routed alike; worst block routes "
+           f"{flip:.4f} of its tokens otherwise (limit "
+           f"{LM_MOE_FLIP_SHARE})" if cfg.n_experts else ""))
+    check(worst <= LM_FAMILY_BLOCK_TOL,
+          f"[{tag}] a bf16 block parts from its float32 self")
+    check(flip <= LM_MOE_FLIP_SHARE,
+          f"[{tag}] too many tokens routed otherwise in bf16")
+    return worst, flip
+
+
+def _lm_runs(R, cfg, params, prompt, feed):
+    """(what, fn) of one prefill of ``prompt`` and of two decode steps
+    after it, fed ``feed``, through the registry's steps."""
+    prefill = R.make_prefill_step(cfg, prompt.shape[1] + 2)
+    step = R.make_serve_step(cfg)
+    P = prompt.shape[1]
+    _, cache = prefill(params, prompt)
+    return (("prefill", lambda: prefill(params, prompt)),
+            ("2 decode steps", lambda: [step(params, cache, feed[
+                :, i:i + 1], P + i) for i in range(2)]))
+
+
+def _trace(tag, runs, out, categories=()):
+    """Each (what, fn) of ``runs`` once under the profiler: host wall,
+    device busy, idle share, kernels, top kernels, and the device time of
+    the kernels whose names hold each of ``categories``' words."""
+    for what, fn in runs:
+        wall, per = profile_kernels(fn)
+        busy = sum(ms for ms, _ in per.values())
+        launches = sum(n for _, n in per.values())
+        top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+        cats = {c: sum(ms for name, (ms, _) in per.items()
+                       if any(w in name.lower() for w in words))
+                for c, words in categories}
+        log(f"[{tag}] trace, {what}: host wall {wall:.2f} ms, device busy "
+            f"{busy:.2f} ms (idle share {1 - busy / wall:.3f}), "
+            f"{launches} kernels; top: "
+            + "; ".join(f"{name[:48]} {ms:.2f} ms x{n}"
+                        for name, (ms, n) in top)
+            + "".join(f"; {c} {ms:.2f} ms ({ms / busy:.3f} of busy)"
+                      for c, ms in cats.items()))
+        out[f"trace_{what.replace(' ', '_')}"] = dict(
+            wall_ms=wall, device_busy_ms=busy, kernels=launches,
+            top=[(name, ms, n) for name, (ms, n) in top], categories=cats)
+
+
+# kernel-name words of the MoE dispatch's own work (the router's sort,
+# the slot bookkeeping's sorts and scans, the gathers and copies)
+MOE_DISPATCH_WORDS = (
+    ("sorts", ("sort",)),
+    ("gathers, scatters, index", ("gather", "scatter", "index")),
+    ("copies, cat, where", ("copy", "cat", "where")),
+)
+
+
+def phase_lm_moe(dev, results, smoke=False, B=4, P=512, GEN=32,
+                 KB=2, KP=128, KGEN=8):
+    """granite-moe-1b-a400m at full width, then kimi-k2 at its published
+    widths cut to 2 layers (``smoke`` rehearses both at their smoke
+    configs)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as NN
+    from repro_torch.models import lm as LM
+    from repro_torch.models import registry as R
+
+    tag = "lm_moe"
+    t_phase = t0 = _phase_start(tag)
+    cfg, params = serve.init_lm("granite-moe-1b-a400m", smoke=smoke,
+                                device=dev, seed=0)
+    torch.cuda.synchronize()
+    check(smoke or (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.head_dim, cfg.n_experts, cfg.top_k, cfg.moe_d_ff,
+                    cfg.vocab, cfg.dtype)
+          == (24, 1024, 16, 8, 64, 32, 8, 512, 49155, torch.bfloat16),
+          f"[{tag}] not the full-width config: {cfg}")
+    n_params = _log_config(tag, cfg, params, time.perf_counter() - t0)
+    prompt = serve.make_prompt(cfg, B, P, seed=0, device=dev)
+    serve.serve_lm(params, cfg, prompt[:, :64], gen=2)      # warm-up
+
+    # ---- the main path: the serve module's loop at B x P, GEN steps
+    res = _serve_and_check(tag, serve, params, cfg, prompt, GEN)
+    # ----
+    out = dict(params=n_params, batch=B, prompt_len=P, gen=GEN,
+               prefill_ms=res.prefill_s * 1e3,
+               decode_ms_per_step=res.decode_s / GEN * 1e3,
+               tokens_per_s=res.tokens_per_s)
+
+    # (1) the MoE block against the float32 loop over its experts, on
+    # the first block's channel input at the prefill's shape
+    bp = params["blocks"][0]
+    x = LM._embed(cfg, params, prompt)
+    a, _ = NN.attn_apply(bp["attn"], cfg.attn_spec("attn"),
+                         LM._norm_apply(cfg, bp["norm1"], x),
+                         torch.arange(P, device=dev))
+    h2 = LM._norm_apply(cfg, bp["norm2"], x + a)
+    out["moe_block_rel"], _ = _moe_block_check(tag, NN, cfg, bp, h2)
+
+    # (2) two prefills of the same tokens: the same bits (no float
+    # atomics); the prefill's dropped assignments, layer by layer
+    prefill = R.make_prefill_step(cfg, P + GEN)
+    with _Routes(NN) as routes:
+        l1, c1 = prefill(params, prompt)
+    l2, c2 = prefill(params, prompt)
+    same = torch.equal(l1, l2) and all(
+        torch.equal(a, b) for a, b in zip(_leaves(c1), _leaves(c2)))
+    drops = [int((~k).sum()) for _, k in routes.calls]
+    log(f"[{tag}] two prefills of the same tokens: logits and caches "
+        f"equal bit for bit: {same}; dropped assignments at capacity "
+        f"{cfg.moe_capacity_factor} ({NN.moe_capacity(cfg.moe_spec(), B * P)}"
+        f" slots an expert): {sum(drops)} of "
+        f"{B * P * cfg.top_k * cfg.n_layers} over {cfg.n_layers} layers "
+        f"(most in one layer {max(drops)})")
+    check(same, f"[{tag}] two prefills of the same tokens differ")
+    out.update(prefill_bits_equal=same, prefill_dropped=drops)
+    del l1, l2, c1, c2
+
+    # (3) bf16 against the same weights in float32: block by block on the
+    # same inputs, then over the whole model
+    p32 = _cast_params(params, torch.float32)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    blk, flip = _blocks_bf16_vs_f32(tag, LM, NN, cfg, params, c32, p32,
+                                    prompt)
+    rels, agree, n_clear = _bf16_vs_f32(tag, R, cfg, params, c32, p32,
+                                        prompt, res)
+    log(f"[{tag}] bf16 vs float32, whole model, logits: prefill "
+        f"{rels[0]:.3e}, decode max {max(rels[1:]):.3e} (tolerance "
+        f"{LM_MOE_BF16_TOL}); argmax agrees on {agree:.4f} of the "
+        f"{n_clear} rows whose margin clears twice the error")
+    check(max(rels) <= LM_MOE_BF16_TOL,
+          f"[{tag}] the bf16 model parts from its float32 self")
+    out.update(block_bf16_vs_f32_rel=blk, block_route_flip_share=flip,
+               bf16_vs_f32_rel=rels, bf16_vs_f32_argmax_agree=agree,
+               clear_rows=n_clear)
+
+    # (4) float32 at capacity factor 16 (the reference's own test
+    # setting: nothing drops): a 64-token prefill, then decode steps,
+    # against one forward over the same tokens, on the rows routed alike
+    c16 = dataclasses.replace(c32, moe_capacity_factor=16.0)
+    toks = serve.make_prompt(cfg, B, 64 + 16, seed=2, device=dev)
+    with torch.no_grad(), _Routes(NN) as fwd_routes:
+        full, _ = LM.forward(p32, c16, toks)
+    with _Routes(NN) as inc_routes:
+        lp, cache = LM.prefill(p32, c16, toks[:, :64], 64 + 16)
+        steps = []
+        for t in range(64, 64 + 16):
+            ld, cache = LM.decode_step(p32, c16, cache, toks[:, t:t + 1], t)
+            steps.append(ld)
+    L = cfg.n_layers
+    alike = torch.ones(B, dtype=torch.bool, device=dev)
+    for i in range(L):
+        inc = torch.cat([inc_routes.keys(i).reshape(B, 64, -1)]
+                        + [inc_routes.keys(L * (1 + s) + i).reshape(B, 1, -1)
+                           for s in range(16)], dim=1)
+        alike &= (fwd_routes.keys(i).reshape(B, 80, -1) == inc).all(-1).all(-1)
+    rows = alike.nonzero().flatten()
+    f32 = [_rel_err(lp[rows], full[rows, 63])[1]] + [
+        _rel_err(ld[rows], full[rows, 64 + s])[1]
+        for s, ld in enumerate(steps)]
+    log(f"[{tag}] float32 at capacity factor 16, 64-token prefill + 16 "
+        f"decode steps vs one forward over the 80 tokens: {len(rows)} of "
+        f"{B} rows routed alike at every position and layer; their logits' "
+        f"max error relative to scale {max(f32):.3e} (tolerance "
+        f"{LM_FAMILY_F32_TOL})")
+    check(len(rows) >= B // 2, f"[{tag}] float32 routes part on most rows")
+    check(max(f32) <= LM_FAMILY_F32_TOL,
+          f"[{tag}] prefill + decode parts from the full forward")
+    out.update(f32_rows_alike=len(rows), f32_prefill_decode_vs_forward_rel=f32)
+    del full, cache, p32, lp, steps
+    torch.cuda.empty_cache()
+
+    # where the time goes
+    _trace(tag, _lm_runs(R, cfg, params, prompt, res.tokens), out,
+           MOE_DISPATCH_WORDS)
+    del params, res
+    torch.cuda.empty_cache()
+
+    # kimi-k2 at its published widths, depth cut to 2 layers: the dense
+    # layer 0, then one MoE layer of 384 experts and the shared expert
+    t0 = time.perf_counter()
+    kcfg = R.get_config("kimi-k2-1t-a32b", smoke=smoke)
+    kcfg = dataclasses.replace(kcfg, n_layers=2)
+    kparams = LM.init_params(kcfg, torch.Generator(device=dev).manual_seed(1),
+                             dev)
+    torch.cuda.synchronize()
+    check(smoke or (kcfg.d_model, kcfg.n_heads, kcfg.n_kv_heads,
+                    kcfg.head_dim, kcfg.n_experts, kcfg.top_k, kcfg.moe_d_ff,
+                    kcfg.d_ff, kcfg.vocab, kcfg.shared_expert)
+          == (7168, 64, 8, 112, 384, 8, 2048, 18432, 163840, True),
+          f"[{tag}] not kimi-k2's published widths: {kcfg}")
+    check(kcfg.kinds == [("attn", "dense"), ("attn", "moe")],
+          f"[{tag}] kimi-k2 cut: {kcfg.kinds}")
+    kn = _log_config(tag, kcfg, kparams, time.perf_counter() - t0)
+    kprompt = serve.make_prompt(kcfg, KB, KP, seed=3, device=dev)
+    kres = _serve_and_check(tag, serve, kparams, kcfg, kprompt, KGEN)
+    kb = kparams["blocks"][1]
+    h2 = LM._norm_apply(kcfg, kb["norm2"], LM._embed(kcfg, kparams, kprompt))
+    krel, kdrop = _moe_block_check(tag, NN, kcfg, kb, h2)
+    out["kimi"] = dict(params=kn, layers=2, batch=KB, prompt_len=KP,
+                       gen=KGEN, prefill_ms=kres.prefill_s * 1e3,
+                       decode_ms_per_step=kres.decode_s / KGEN * 1e3,
+                       moe_block_rel=krel, dropped=kdrop)
+    del kparams, kres, h2
+    _phase_end(tag, out, results, t_phase)
+
+
+def phase_lm_rglru(dev, results, smoke=False, B=4, P=512, GEN=32,
+                   LONG=2304):
+    """recurrentgemma-9b at full width (``smoke`` rehearses it)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as NN
+    from repro_torch.models import lm as LM
+    from repro_torch.models import recurrent as RC
+    from repro_torch.models import registry as R
+
+    tag = "lm_rglru"
+    t_phase = t0 = _phase_start(tag)
+    cfg, params = serve.init_lm("recurrentgemma-9b", smoke=smoke,
+                                device=dev, seed=0)
+    torch.cuda.synchronize()
+    check(smoke or (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.head_dim, cfg.d_ff, cfg.d_rnn, cfg.window, cfg.vocab,
+                    cfg.dtype)
+          == (38, 4096, 16, 1, 256, 12288, 4096, 2048, 256000,
+              torch.bfloat16), f"[{tag}] not the full-width config: {cfg}")
+    kinds = [m for m, _ in cfg.kinds]
+    n_params = _log_config(tag, cfg, params, time.perf_counter() - t0)
+    log(f"[{tag}] {kinds.count('rglru')} RG-LRU and {kinds.count('local')} "
+        f"local-attention layers")
+    prompt = serve.make_prompt(cfg, B, P, seed=0, device=dev)
+    serve.serve_lm(params, cfg, prompt[:, :64], gen=2)      # warm-up
+
+    # ---- the main path: B x P, GEN steps; then one long prompt whose
+    # local layers' ring of ``window`` slots wraps
+    res = _serve_and_check(tag, serve, params, cfg, prompt, GEN)
+    long_len = LONG if not smoke else 2 * cfg.window + 3
+    check(long_len > cfg.window, f"[{tag}] the long prompt does not wrap")
+    lres = _serve_and_check(tag, serve, params, cfg,
+                            serve.make_prompt(cfg, 1, long_len, seed=1,
+                                              device=dev), GEN)
+    # ----
+    out = dict(params=n_params, batch=B, prompt_len=P, gen=GEN,
+               prefill_ms=res.prefill_s * 1e3,
+               decode_ms_per_step=res.decode_s / GEN * 1e3,
+               tokens_per_s=res.tokens_per_s,
+               long=dict(prompt_len=long_len,
+                         prefill_ms=lres.prefill_s * 1e3,
+                         decode_ms_per_step=lres.decode_s / GEN * 1e3))
+    del lres
+
+    # (1) every decay at its floor: Lambda = 6 and r = 1 (positive inputs
+    # through positive weights, a large positive r-gate) at full width
+    rp = dict(params["blocks"][0]["rglru"])
+    rp.update(w_x=rp["w_x"].abs(), conv_w=rp["conv_w"].abs(),
+              w_rgate=torch.full_like(rp["w_rgate"], 100.0),
+              lam=torch.full_like(rp["lam"], 6.0))
+    xf = torch.randn((1, P, cfg.d_model), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(4)
+                     ).abs().to(cfg.dtype)
+    y, st = RC.rglru_apply(rp, xf)
+    u, _ = RC._causal_conv(xf @ rp["w_x"], rp["conv_w"], None)
+    r = torch.sigmoid(u.float() @ rp["w_rgate"].float())
+    a_floor = float(torch.exp(-8.0 * torch.nn.functional.softplus(
+        torch.tensor(6.0))))
+    finite = bool(torch.isfinite(y).all()) and bool(
+        torch.isfinite(st["h"]).all())
+    log(f"[{tag}] every decay at its floor (Lambda 6, r == 1 on "
+        f"{float((r == 1).float().mean()):.4f} of the gates, a = "
+        f"{a_floor:.3e} a token) over {P} tokens at width "
+        f"{rp['lam'].numel()}: output and state finite: {finite}")
+    check(finite and bool((r == 1).all()),
+          f"[{tag}] the floor decays are not finite")
+    del rp, xf, y, st, u, r
+
+    # (2) bf16 against float32, block by block and over the whole model
+    p32 = _cast_params(params, torch.float32)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    blk, _ = _blocks_bf16_vs_f32(tag, LM, NN, cfg, params, c32, p32, prompt)
+    rels, agree, n_clear = _bf16_vs_f32(tag, R, cfg, params, c32, p32,
+                                        prompt, res)
+    log(f"[{tag}] bf16 vs float32, whole model, logits: prefill "
+        f"{rels[0]:.3e}, decode max {max(rels[1:]):.3e} (tolerance "
+        f"{LM_RGLRU_BF16_TOL}); argmax agrees on {agree:.4f} of the "
+        f"{n_clear} rows whose margin clears twice the error")
+    check(max(rels) <= LM_RGLRU_BF16_TOL,
+          f"[{tag}] the bf16 model parts from its float32 self")
+    out.update(block_bf16_vs_f32_rel=blk, bf16_vs_f32_rel=rels,
+               bf16_vs_f32_argmax_agree=agree, clear_rows=n_clear)
+
+    # (3) float32: a 64-token prefill, then decode steps, against one
+    # forward; and the state 64 decode steps leave against the 64-token
+    # prefill's (h, conv and the ring)
+    toks = serve.make_prompt(cfg, B, 64 + 16, seed=2, device=dev)
+    with torch.no_grad():
+        full, _ = LM.forward(p32, c32, toks)
+    lp, cache = LM.prefill(p32, c32, toks[:, :64], 64 + 16)
+    f32 = [_rel_err(lp, full[:, 63])[1]]
+    for t in range(64, 64 + 16):
+        ld, cache = LM.decode_step(p32, c32, cache, toks[:, t:t + 1], t)
+        f32.append(_rel_err(ld, full[:, t])[1])
+    del full, cache
+    _, pre = LM.prefill(p32, c32, toks[:, :64], 64)
+    dec = LM.init_cache(c32, B, 64, dev)
+    for t in range(64):
+        _, dec = LM.decode_step(p32, c32, dec, toks[:, t:t + 1], t)
+    state = max(_rel_err(b[k], a[k])[1] for a, b in
+                zip(pre["blocks"], dec["blocks"]) for k in a)
+    log(f"[{tag}] float32, 64-token prefill + 16 decode steps vs one "
+        f"forward over the 80 tokens: logits max error relative to scale "
+        f"{max(f32):.3e}; 64 decode steps' state (h, conv, ring K/V) vs the "
+        f"64-token prefill's {state:.3e} (tolerance {LM_FAMILY_F32_TOL})")
+    check(max(f32) <= LM_FAMILY_F32_TOL,
+          f"[{tag}] prefill + decode parts from the full forward")
+    check(state <= LM_FAMILY_F32_TOL,
+          f"[{tag}] decode steps leave another state than the prefill")
+    out.update(f32_prefill_decode_vs_forward_rel=f32,
+               f32_decode_state_vs_prefill_rel=state)
+    del p32, pre, dec
+    torch.cuda.empty_cache()
+
+    # where the time goes; the float32 gate products alone (two (B P, R)
+    # x (R, R) float32 GEMMs a layer, CUDA events) beside the prefill
+    _trace(tag, _lm_runs(R, cfg, params, prompt, res.tokens), out)
+    R_ = cfg.d_rnn or cfg.d_model
+    g = torch.Generator(device=dev).manual_seed(5)
+    uf = torch.randn((B * P, R_), device=dev, generator=g)
+    wg = [torch.randn((R_, R_), device=dev, generator=g) for _ in range(2)]
+    n_rg = kinds.count("rglru")
+    gate_ms = time_ms(lambda w: uf @ w, wg, iters=20) * 2 * n_rg
+    busy = out["trace_prefill"]["device_busy_ms"]
+    log(f"[{tag}] the float32 gate products of one prefill ({n_rg} layers x "
+        f"2 of ({B * P}, {R_}) x ({R_}, {R_})): {gate_ms:.2f} ms by CUDA "
+        f"events, {gate_ms / busy:.3f} of the prefill's device busy time")
+    out["f32_gate_products_ms"] = gate_ms
+    del params, res, uf, wg
+    _phase_end(tag, out, results, t_phase)
+
+
+ENCDEC_MESSAGE = "use the encdec example for whisper serving"
+
+
+def phase_encdec(dev, results, smoke=False, B=4, GEN=32, train_steps=20):
+    """whisper-tiny at full width (``smoke`` rehearses it), then
+    ``launch.train`` for the three new families at the reference's smoke
+    configs on the card."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+    from repro_torch.launch import serve, train
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import registry as R
+
+    tag = "encdec"
+    t_phase = t0 = _phase_start(tag)
+    cfg = R.get_config("whisper-tiny", smoke=smoke)
+    params = ED.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    torch.cuda.synchronize()
+    check(smoke or (cfg.n_enc_layers, cfg.n_dec_layers, cfg.d_model,
+                    cfg.n_heads, cfg.d_ff, cfg.vocab, cfg.max_source,
+                    cfg.max_target) == (4, 4, 384, 6, 1536, 51865, 1500, 448),
+          f"[{tag}] not the full-width config: {cfg}")
+    n_params = _log_config(tag, cfg, params, time.perf_counter() - t0)
+    S = cfg.max_source
+    frames = torch.randn((B, S, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1)
+                         ).to(cfg.dtype)
+
+    def serve_whisper(p, c, fr, feed=None):
+        """Encoder + cache, then GEN greedy decode steps from token 0 (or
+        fed ``feed``) through the registry's steps for config ``c`` ->
+        (logits of each step, tokens fed, prefill ms, decode ms)."""
+        prefill, step = R.make_prefill_step(c, 0), R.make_serve_step(c)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cache = prefill(p, fr)
+        torch.cuda.synchronize()
+        pre = (time.perf_counter() - t) * 1e3
+        tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
+        seq, fed = [], []
+        t = time.perf_counter()
+        for i in range(GEN):
+            if feed is not None:
+                tok = feed[:, i:i + 1]
+            fed.append(tok)
+            logits, cache = step(p, cache, tok, i)
+            seq.append(logits)
+            tok = torch.argmax(logits, dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        return seq, torch.cat(fed, 1), pre, (time.perf_counter() - t) * 1e3
+
+    serve_whisper(params, cfg, frames[:, :64])               # warm-up
+    # ---- the main path: the registry's prefill and serve steps
+    seq, fed, pre_ms, dec_ms = serve_whisper(params, cfg, frames)
+    # ----
+    check(all(bool(torch.isfinite(lg).all()) for lg in seq),
+          f"[{tag}] non-finite logits")
+    log(f"[{tag}] served B={B} x {S} frames (encoder + cross K/V) + {GEN} "
+        f"greedy decode steps: prefill {pre_ms:.2f} ms, decode "
+        f"{dec_ms / GEN:.3f} ms/token step; first tokens "
+        f"{fed[0, :8].tolist()}")
+    out = dict(params=n_params, batch=B, frames=S, gen=GEN,
+               prefill_ms=pre_ms, decode_ms_per_step=dec_ms / GEN)
+    prefill, step = R.make_prefill_step(cfg, 0), R.make_serve_step(cfg)
+    cache = prefill(params, frames)
+    _trace(tag, (("prefill", lambda: prefill(params, frames)),
+                 ("2 decode steps", lambda: [step(params, cache, fed[
+                     :, i:i + 1], i) for i in range(2)])), out)
+    del cache
+
+    # float32: decode steps against the teacher-forced decoder over the
+    # same tokens; and bf16 against float32
+    p32 = _cast_params(params, torch.float32)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    seq32, _, _, _ = serve_whisper(p32, c32, frames.float(), feed=fed)
+    with torch.no_grad():
+        full = ED.decode_train(p32, c32, ED.encode(p32, c32, frames.float()),
+                               fed)
+    f32 = max(_rel_err(lg, full[:, i])[1] for i, lg in enumerate(seq32))
+    rels = [_rel_err(a, b)[1] for a, b in zip(seq, seq32)]
+    agree, n_clear = _argmax_agree(
+        torch.stack(seq), torch.stack(seq32),
+        max(rels) * max(float(s.abs().max()) for s in seq32))
+    log(f"[{tag}] float32 decode steps vs decode_train over the same "
+        f"{GEN} tokens: max error relative to scale {f32:.3e} (tolerance "
+        f"{LM_FAMILY_F32_TOL}); bf16 vs float32 decode logits max "
+        f"{max(rels):.3e} (tolerance {ENCDEC_BF16_TOL}); argmax agrees on "
+        f"{agree:.4f} of the {n_clear} clear rows")
+    check(f32 <= LM_FAMILY_F32_TOL, f"[{tag}] decode parts from decode_train")
+    check(max(rels) <= ENCDEC_BF16_TOL,
+          f"[{tag}] the bf16 model parts from its float32 self")
+    check(agree == 1.0, f"[{tag}] bf16 argmax differs on a clear row")
+    out.update(f32_decode_vs_decode_train_rel=f32, bf16_vs_f32_rel=rels,
+               bf16_vs_f32_argmax_agree=agree, clear_rows=n_clear)
+    del p32, seq32, full
+
+    # serve --arch whisper-tiny exits with the reference's message
+    argv = ["--arch", "whisper-tiny"] + (["--full"] if not smoke else
+                                         ["--device", str(dev)])
+    try:
+        serve.main(argv)
+        msg = None
+    except SystemExit as e:
+        msg = str(e.code)
+    log(f"[{tag}] serve {' '.join(argv)}: exits with {msg!r}")
+    check(msg == ENCDEC_MESSAGE, f"[{tag}] serve --arch whisper-tiny served")
+    del params, frames, seq
+    torch.cuda.empty_cache()
+
+    # launch.train on the card at the reference's smoke configs
+    out["train"] = {}
+    for arch, extra in (("granite-moe-1b-a400m", []),
+                        ("recurrentgemma-9b", []),
+                        ("whisper-tiny", ["--seq", "32"])):
+        with tempfile.TemporaryDirectory() as d:
+            buf = io.StringIO()
+            argv = ["--arch", arch, "--steps", str(train_steps),
+                    "--ckpt-dir", d, "--ckpt-every", "10",
+                    "--log-every", "10"] + extra
+            if smoke:
+                argv += ["--device", str(dev)]
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                tr = train.main(argv)
+            secs = time.perf_counter() - t
+            line = buf.getvalue().strip().splitlines()[-1]
+            log(f"[{tag}] train {' '.join(argv[:4])} {' '.join(extra)}: "
+                f"{line} ({secs:.1f} s; checkpoints at {tr.manager.steps()})")
+            last = tr.history[-1]
+            ok = (tr.step == train_steps and np.isfinite(last["loss"])
+                  and tr.manager.steps()[-1] == train_steps
+                  and (" aux=" in line) == arch.startswith("granite"))
+            check(ok, f"[{tag}] launch.train --arch {arch} did not train")
+            out["train"][arch] = dict(loss=last["loss"], aux=last.get("aux"),
+                                      seconds=secs)
+    _phase_end(tag, out, results, t_phase)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2637,6 +3385,9 @@ def main() -> int:
     counts.update(phase_lm(dev, results))
     phase_lm_attn(dev, results)
     phase_lm_train(dev, results)
+    phase_lm_moe(dev, results)
+    phase_lm_rglru(dev, results)
+    phase_encdec(dev, results)
     for name, n in phase_examples(dev, results).items():
         counts[name] += n
 

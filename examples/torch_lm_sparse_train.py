@@ -83,7 +83,7 @@ def main(argv=None):
 
     trainer = Trainer(
         TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=100, keep=2),
-        step, state)
+        step, state, layout=LM.checkpoint_layout(cfg))
     resumed = trainer.try_resume()
     print(f"resumed={resumed} at step {trainer.step}")
 

@@ -1,6 +1,7 @@
 """PyTorch + CUDA port of the LUT-DNN toolflow (QAT training, truth-table
 synthesis, artifacts, the LUT engine and its serving stack) and the
-RWKV6 language model.
+language models of the registry (attention, MoE, RG-LRU and RWKV6
+decoders, and the whisper encoder-decoder).
 
 A second package beside ``repro`` (the JAX reference), laid out in the
 same way: ``repro_torch.<module>`` is the counterpart of

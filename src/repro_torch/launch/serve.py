@@ -4,9 +4,13 @@
 LM mode: one prefill builds the decode cache (KV caches for attention,
 the recurrent state for RWKV) for the whole batch, then ``serve_step``
 decodes token by token, greedily or by sampling at ``--temperature``.
-Any ported architecture serves (``--arch``, ``models/registry.ARCHS``;
-``qwen2.5-3b`` by default, as in the reference); ``--kv-int8`` stores
-the attention caches as int8 codes with per-token scales.  Weights are
+Every decoder-only architecture serves (``--arch``,
+``models/registry.ARCHS``; ``qwen2.5-3b`` by default, as in the
+reference): attention, MoE, RG-LRU and RWKV.  The encoder-decoder
+(whisper) exits with the reference's message; its prefill and decode
+are the registry's ``make_prefill_step`` and ``make_serve_step``.
+``--kv-int8`` stores the attention caches as int8 codes with per-token
+scales.  Weights are
 drawn from a fixed seed (no published weights are in the repository);
 inference does the same work whatever their values.
 
@@ -35,8 +39,7 @@ batch stream through the scoreboard scheduler.
 
 Without ``--device`` both modes run on the CUDA card.  Not ported yet:
 ``--shards`` (a batch sharded over devices, ``ROADMAP.md`` Queue 1
-item 5), and the MoE, RG-LRU and encoder-decoder architectures (item
-6).
+item 5).
 """
 from __future__ import annotations
 
@@ -659,6 +662,8 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.lut:
         return serve_lut(args)
 
+    if R.is_encdec(R.get_config(args.arch, smoke=args.smoke)):
+        raise SystemExit("use the encdec example for whisper serving")
     cfg, params = init_lm(args.arch, smoke=args.smoke, device=args.device)
     if args.kv_int8:
         cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")

@@ -12,8 +12,11 @@ It runs on the CUDA card unless ``--device`` names another device.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
         --steps 20
 
-Not ported: the encoder-decoder (whisper) batches, and sharding over
-a mesh (``ROADMAP.md``, Queue 1 item 6).
+Every registered architecture trains, the encoder-decoder (whisper) on
+random frames and tokens drawn as the reference draws them; an MoE
+model's load-balancing term is printed as ``aux``.  Checkpoints are in
+the reference's layout: its ``restore_checkpoint`` reads them.  Not ported:
+sharding over a mesh (``ROADMAP.md``, Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -24,10 +27,12 @@ import tempfile
 import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.data.tokens import lm_batch_iterator, synthetic_token_stream
 from repro_torch.device import resolve_device
+from repro_torch.models import lm as LM
 from repro_torch.models import registry as R
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
@@ -35,8 +40,20 @@ from repro_torch.runtime.trainer import Trainer, TrainerConfig
 def batches_for(cfg, batch_size: int, seq_len: int, seed: int = 0,
                 device=None):
     if R.is_encdec(cfg):
-        raise NotImplementedError("encoder-decoder batches are not ported "
-                                  "yet (see ROADMAP.md Queue 1 item 6)")
+        def gen():
+            # the reference's numpy draws, in its order
+            rng = np.random.default_rng(seed)
+            while True:
+                frames = rng.normal(size=(batch_size, seq_len, cfg.d_model)
+                                    ).astype(np.float32)
+                toks = rng.integers(0, cfg.vocab,
+                                    (batch_size, min(cfg.max_target, 32)))
+                toks = torch.from_numpy(toks).to(device=device,
+                                                 dtype=torch.int32)
+                yield {"frames": torch.from_numpy(frames).to(
+                           device=device, dtype=torch.bfloat16),
+                       "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        return gen()
     stream = synthetic_token_stream(cfg.vocab, 200_000, seed=seed)
     return lm_batch_iterator(stream, batch_size, seq_len, seed=seed,
                              device=device)
@@ -64,7 +81,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
 
     dev = resolve_device(args.device)
     cfg = R.get_config(args.arch, smoke=args.smoke)
-    if args.sparse_ffn:
+    if args.sparse_ffn and not R.is_encdec(cfg):
         cfg = dataclasses.replace(
             cfg, sparse_ffn=True, sparse_fan_in=args.sparse_fan_in,
             sparse_phase_T=int(args.steps * 0.8))
@@ -72,9 +89,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     init_state, step = R.make_train_step(cfg, remat=False)
     state = init_state(torch.Generator(device=dev).manual_seed(0), dev)
 
+    # an LM's checkpoints hold the reference's stacked layout, which its
+    # restore_checkpoint reads; the encoder-decoder's trees already match
+    layout = None if R.is_encdec(cfg) else LM.checkpoint_layout(cfg)
     trainer = Trainer(
         TrainerConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),
-        step, state)
+        step, state, layout=layout)
     trainer.try_resume()
 
     data = batches_for(cfg, args.batch, args.seq, device=dev)
@@ -82,8 +102,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     trainer.run(data, args.steps, log_every=args.log_every)
     dt = time.time() - t0
     last = trainer.history[-1] if trainer.history else {}
+    aux = f" aux={last['aux']:.4f}" if last.get("aux") else ""
     print(f"arch={cfg.name} device={dev} steps={trainer.step} "
-          f"time={dt:.1f}s loss={last.get('loss', float('nan')):.4f} "
+          f"time={dt:.1f}s loss={last.get('loss', float('nan')):.4f}{aux} "
           f"recoveries={trainer.recoveries}")
     return trainer
 

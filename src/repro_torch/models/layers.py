@@ -1,6 +1,8 @@
 """Layer primitives of the language models (port of
-``repro.models.layers``): norms, RoPE, grouped-query attention and the
-dense FFN.  MoE waits (``ROADMAP.md``, Queue 1 item 6).
+``repro.models.layers``): norms, RoPE, grouped-query self- and
+cross-attention, the dense FFN and the token-choice mixture of experts
+(``moe_apply``).  The expert-parallel dispatch (``moe_apply_ep``) waits
+with the rest of the multi-card work (``ROADMAP.md``, Queue 1 item 6).
 
 Conventions, as in the reference:
 
@@ -24,6 +26,16 @@ cache's size, small beside the weights each step reads (``PERF.md``).
 With TF32 off (PyTorch's default for matmuls) the float32 products are
 full float32 on the card too.  The model's other products (projections,
 FFN, unembedding) stay bf16 matmuls with float32 accumulation.
+
+**MoE without float atomics.**  The reference packs each expert's tokens
+into an (E, C, D) buffer by a scatter and combines by a scatter-add
+(``y.at[st].add(vals)``).  On the card an ``index_add_`` would add a
+token's k contributions with float atomics, in arrival order, rounding
+each bf16 add differently from run to run.  ``moe_apply`` gathers
+instead: each buffer slot reads the token at its expert's capacity
+rank, and each token reads back its k rows and adds them one by one in
+the reference's order (ascending expert id, from zero, in the model's
+dtype).  Two runs on the same tokens give the same bits.
 """
 from __future__ import annotations
 
@@ -31,6 +43,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -40,6 +53,27 @@ from repro_torch.device import DeviceLike, resolve_device
 # ---------------------------------------------------------------------------
 # norms / rope
 # ---------------------------------------------------------------------------
+
+def from_numpy(a, device) -> torch.Tensor:
+    """A numpy (or ``ml_dtypes`` bfloat16) array as a tensor of its own
+    dtype on ``device``: a writable copy; bfloat16 goes exactly through
+    float32."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def tree_from_numpy(node, device):
+    """``from_numpy`` on every leaf of a tree of dicts and lists (a tuple
+    becomes a list)."""
+    if isinstance(node, dict):
+        return {k: tree_from_numpy(v, device) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [tree_from_numpy(v, device) for v in node]
+    return from_numpy(node, device)
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -151,8 +185,11 @@ class AttnSpec:
 
 def _normal(g: torch.Generator, shape, scale: float, dtype,
             device) -> torch.Tensor:
-    return (torch.randn(shape, generator=g, device=device,
-                        dtype=torch.float32) * scale).to(dtype)
+    """N(0, scale^2) drawn in float32 from ``g``, cast to ``dtype``; scaled
+    in place, so the float32 draw is the only temporary (kimi-k2's
+    expert stack is 22.5 GB of it)."""
+    return torch.randn(shape, generator=g, device=device,
+                       dtype=torch.float32).mul_(scale).to(dtype)
 
 
 def attn_init(generator: torch.Generator, s: AttnSpec,
@@ -191,13 +228,15 @@ def attn_out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 
 def attn_qkv(p: dict, s: AttnSpec, x: torch.Tensor,
-             positions: torch.Tensor
+             positions: torch.Tensor, kv_x: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Projected q, k, v (B, S, {H|KH}, hd), with the biases and RoPE."""
-    q, k, v = proj(x, p["wq"]), proj(x, p["wk"]), proj(x, p["wv"])
+    """Projected q, k, v (B, S, {H|KH}, hd), with the biases and RoPE;
+    K and V from ``kv_x`` (cross-attention, no RoPE) when it is given."""
+    src = x if kv_x is None else kv_x
+    q, k, v = proj(x, p["wq"]), proj(src, p["wk"]), proj(src, p["wv"])
     if s.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if s.use_rope:
+    if s.use_rope and kv_x is None:
         q = rope(q, positions, s.rope_theta)
         k = rope(k, positions, s.rope_theta)
     return q, k, v
@@ -237,6 +276,14 @@ def attn_cache_init(s: AttnSpec, batch: int, max_len: int,
                                device=device),
             "v_s": torch.zeros(shape[:-1], dtype=torch.float16,
                                device=device)}
+
+
+def slot_index(value, device) -> torch.Tensor:
+    """A one-element long index from a Python int (a fill, no host to
+    device copy) or a 0-d tensor: a decode step's position."""
+    if isinstance(value, torch.Tensor):
+        return value.reshape(1).to(device=device, dtype=torch.long)
+    return torch.full((1,), int(value), dtype=torch.long, device=device)
 
 
 def ring_positions(pos: torch.Tensor, slots: int) -> torch.Tensor:
@@ -286,12 +333,15 @@ def _cache_read(s: AttnSpec, cache: dict, positions: torch.Tensor,
 
 
 def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor,
-               positions: torch.Tensor, cache: Optional[dict] = None
+               positions: torch.Tensor, cache: Optional[dict] = None,
+               kv_x: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Self-attention, the mixer of the LM's ``attn`` and ``local``
-    blocks (cross-attention waits with ``encdec``).  ``positions`` (S,)
-    are x's positions.
+    """Self- or cross-attention: the mixer of the LM's ``attn`` and
+    ``local`` blocks and the encoder-decoder's attention.  ``positions``
+    (S,) are x's positions.
 
+    * ``kv_x`` given: cross-attention, K and V from the encoder sequence
+      ``kv_x`` (no RoPE, no causal mask, no cache);
     * ``cache`` None: full-sequence attention over x (train);
     * ``cache`` given, S > 1: the same, and x's K/V fill the cache
       (prefill);
@@ -301,8 +351,14 @@ def attn_apply(p: dict, s: AttnSpec, x: torch.Tensor,
     The cache (``attn_cache_init``) is written in place and returned:
     the reference returns a new one, but an eager copy of every layer's
     cache a token would double a decode step's cache traffic."""
-    q, k, v = attn_qkv(p, s, x, positions)
-    if cache is not None and x.shape[1] == 1:
+    q, k, v = attn_qkv(p, s, x, positions, kv_x)
+    if kv_x is not None:
+        if cache is not None:
+            raise ValueError("cross-attention takes no cache")
+        kv_pos = torch.arange(kv_x.shape[1], device=kv_x.device)
+        o = attention(q, k, v, positions, kv_pos, causal=False,
+                      window=s.window)
+    elif cache is not None and x.shape[1] == 1:
         _cache_store(s, cache, k, v, positions)
         k, v, kv_pos = _cache_read(s, cache, positions, q.dtype)
         o = attention(q, k, v, positions, kv_pos, causal=True,
@@ -371,3 +427,129 @@ def ffn_apply(p: dict, kind: str, x: torch.Tensor) -> torch.Tensor:
     else:
         raise ValueError(kind)
     return torch.matmul(h, p["w_out"])
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (token-choice top-k, grouped GEMM dispatch)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    n_experts: int
+    top_k: int
+    d_model: int
+    d_ff: int
+    capacity_factor: float = 1.25
+    shared_expert: bool = False
+
+
+def moe_init(generator: torch.Generator, s: MoESpec, dtype=torch.bfloat16,
+             device: DeviceLike = None) -> dict:
+    """The reference's shapes, scales and dtypes (a float32 router),
+    drawn from ``generator`` on ``device`` (the card unless named)."""
+    device = resolve_device(device)
+    E, D, Fe = s.n_experts, s.d_model, s.d_ff
+    sd_in, sd_out = 1.0 / math.sqrt(D), 1.0 / math.sqrt(Fe)
+    p = {
+        "router": {"w": _normal(generator, (D, E), sd_in, torch.float32,
+                                device)},
+        "experts": {
+            "w_in": _normal(generator, (E, D, Fe), sd_in, dtype, device),
+            "w_gate": _normal(generator, (E, D, Fe), sd_in, dtype, device),
+            "w_out": _normal(generator, (E, Fe, D), sd_out, dtype, device),
+        },
+    }
+    if s.shared_expert:
+        p["shared"] = ffn_init(generator, D, Fe, "swiglu", dtype,
+                               device=device)
+    return p
+
+
+def moe_capacity(s: MoESpec, n_tokens: int, no_drop: bool = False) -> int:
+    """Slots per expert: every token (``no_drop``), else the reference's
+    ``max(1, round(T k / E * capacity_factor))`` (Python's round)."""
+    if no_drop:
+        return n_tokens
+    return int(max(1, round(n_tokens * s.top_k / s.n_experts
+                            * s.capacity_factor)))
+
+
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """How often each of 0..n-1 occurs in ``idx``, as an integer
+    scatter-add: exact in any order, and (unlike ``torch.bincount`` on
+    the card) no wait for the device to learn the output's size."""
+    return torch.zeros(n, dtype=torch.long, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
+def moe_route(p: dict, s: MoESpec, xt: torch.Tensor):
+    """Router of (T, D) tokens -> (gates (T, k), eids (T, k), aux).  The
+    top k by a stable descending sort: ties go to the lower expert id,
+    as ``jax.lax.top_k`` breaks them.  ``aux`` is the
+    Switch-style load-balancing loss on each token's first choice."""
+    E = s.n_experts
+    logits = xt.float() @ p["router"]["w"]
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, eids = vals[:, :s.top_k], idx[:, :s.top_k]
+    gates = gates / torch.sum(gates, dim=-1, keepdim=True)
+    density = _counts(eids[:, 0], E).float() / xt.shape[0]
+    aux = torch.sum(density * torch.mean(probs, dim=0)) * E
+    return gates, eids, aux
+
+
+def moe_dispatch(s: MoESpec, eids: torch.Tensor, cap: int):
+    """Slot bookkeeping of the assignments (T, k) at ``cap`` slots an
+    expert, as the reference sorts them (stably by expert, so each
+    expert's tokens in token order).  Returns (slot_tok (E, cap) token
+    of each slot, slot_ok (E, cap) whether it is filled, slot (T, k)
+    flat slot e * cap + rank of each assignment, keep (T, k) whether it
+    fits)."""
+    T, k = eids.shape
+    E, A = s.n_experts, T * k
+    flat_e = eids.reshape(A)
+    order = torch.argsort(flat_e, stable=True)
+    counts = _counts(flat_e, E)
+    starts = torch.cumsum(counts, 0) - counts
+    # rank of assignment a among its expert's, in the sorted order
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(A, device=eids.device))
+    rank = (inv - starts[flat_e]).reshape(T, k)
+    keep = rank < cap
+    slot = torch.where(keep, eids * cap + rank, 0)
+    c = torch.arange(cap, device=eids.device)
+    src = torch.clamp(starts[:, None] + c[None, :], max=A - 1)
+    slot_tok = torch.div(order[src], k, rounding_mode="floor")
+    slot_ok = c[None, :] < counts[:, None]
+    return slot_tok, slot_ok, slot, keep
+
+
+def moe_apply(p: dict, s: MoESpec, x: torch.Tensor,
+              no_drop: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) -> (y, aux).  Assignments beyond an expert's capacity
+    are dropped (``moe_capacity``; ``no_drop`` keeps every one, the
+    decode setting).  Dispatch and combine are gathers (module
+    docstring): no float atomics, the same bits every run."""
+    B, S, D = x.shape
+    T = B * S
+    xt = x.reshape(T, D)
+    gates, eids, aux = moe_route(p, s, xt)
+    cap = moe_capacity(s, T, no_drop)
+    slot_tok, slot_ok, slot, keep = moe_dispatch(s, eids, cap)
+    buf = torch.where(slot_ok[..., None], xt[slot_tok], 0.0)   # (E, cap, D)
+    # each expert's SwiGLU on its rows: three batched GEMMs
+    w = p["experts"]
+    h = F.silu(torch.bmm(buf, w["w_gate"])) * torch.bmm(buf, w["w_in"])
+    out = torch.bmm(h, w["w_out"]).reshape(-1, D)
+    # each token's k rows in ascending expert id, the reference's order
+    # of its scatter-add
+    perm = torch.argsort(eids, dim=-1)
+    sl, kp = slot.gather(1, perm), keep.gather(1, perm)
+    vals = torch.where(kp[..., None], out[sl], 0.0) \
+        * gates.gather(1, perm).to(x.dtype)[..., None]       # (T, k, D)
+    y = vals[:, 0]
+    for j in range(1, s.top_k):
+        y = y + vals[:, j]
+    if "shared" in p:
+        y = y + ffn_apply(p["shared"], "swiglu", x).reshape(T, D)
+    return y.reshape(B, S, D), aux

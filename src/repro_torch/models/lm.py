@@ -1,31 +1,40 @@
-"""Decoder-only LM (port of ``repro.models.lm``) for the blocks ported so
-far: global (``attn``) and sliding-window (``local``) attention paired
-with the dense FFN (``dense``), and RWKV6 time mix paired with RWKV
-channel mix (``("rwkv", "rwkv_cm")``).  RG-LRU, MoE, the encoder-decoder
-and sharding wait (``ROADMAP.md``, Queue 1 item 6); asking for them
-raises ``NotImplementedError``.
+"""Decoder-only LM (port of ``repro.models.lm``): global (``attn``) and
+sliding-window (``local``) attention and the RG-LRU (``rglru``) mixers,
+each paired with the dense FFN (``dense``) or the mixture of experts
+(``moe``), and RWKV6 time mix paired with RWKV channel mix
+(``("rwkv", "rwkv_cm")``).  Sharding waits (``ROADMAP.md``, Queue 1
+item 6): ``moe_ep``, ``moe_ep_fsdp`` and ``seq_parallel`` raise
+``NotImplementedError``.  The encoder-decoder is ``models/encdec.py``.
 
 Parameters are plain dictionaries of tensors with one entry per layer
 (``params["blocks"]``), run by a plain loop: the reference stacks layers
 by period for ``jax.lax.scan``, which PyTorch's eager execution does not
 need.  ``params_from_numpy`` (and ``train_state_from_numpy`` for a whole
 AdamW train state) unstacks the reference's tree into this layout, so
-both packages can run, and train, the same weights.
+both packages can run, and train, the same weights.  An LM checkpoint
+holds the reference's layout (``checkpoint_layout``: the
+``train_state_to_stacked`` and ``train_state_from_stacked`` pair), so
+either package restores the other's.
 
 Modes, as in the reference: ``forward`` (no cache; carries gradients),
 ``prefill`` (runs the prompt and returns the decode cache) and
 ``decode_step`` (one token at position ``pos`` against that cache).
 Global attention keeps a (B, max_len) KV cache; ``local`` layers keep a
-ring of ``window`` slots (slot = pos % window).  ``kv_cache_dtype="int8"``
+ring of ``window`` slots (slot = pos % window); an RG-LRU layer keeps
+its float32 state h and its conv's last inputs.  ``kv_cache_dtype="int8"``
 stores K and V as int8 codes with a float16 scale per token and head.
 Both blocks run ``layers.attn_apply``, which writes into the cache it is
 given and returns it, where the reference returns a new cache.
 
 On CUDA tensors each RWKV time mix sends its WKV through the CUDA
 kernel (``kernels/wkv6``) unless ``use_wkv_kernel`` is off.  Attention,
-the FFN and the unembedding are plain matmuls and softmax, as they are
-plain einsums in the reference (``layers.py`` says how the scores keep
-float32 precision).
+the FFN, the experts, the RG-LRU and the unembedding are plain matmuls,
+softmax and elementwise ops, as they are plain einsums in the reference
+(``layers.py`` says how the scores keep float32 precision).  An MoE
+block drops assignments over capacity in forward and prefill and keeps
+every one at decode (``no_drop``), as the reference does; its
+load-balancing term is the third value of ``block_apply`` and the second
+of ``forward``, which ``lm_loss`` adds.
 
 Training (``lm_loss``, ``make_train_step``) differentiates every leaf of
 ``params``, as the reference does; with ``sparse_ffn`` that includes the
@@ -51,16 +60,13 @@ from repro_torch.models import layers as NN
 from repro_torch.models import recurrent as RC
 from repro_torch.models.layers import AttnSpec
 
-MIXERS = ("attn", "local", "rwkv")
-CHANNELS = ("dense", "rwkv_cm")
-_UNPORTED = "see ROADMAP.md Queue 1 item 6"
+MIXERS = ("attn", "local", "rglru", "rwkv")
+CHANNELS = ("dense", "moe", "rwkv_cm")
+_UNPORTED = "see ROADMAP.md Queue 1 item 6, the multi-card work"
 
-# LMConfig fields of parts that are not ported, with the only value the
-# port takes
-_UNPORTED_FIELDS = dict(n_experts=0, top_k=0, moe_d_ff=0,
-                        shared_expert=False, moe_capacity_factor=1.25,
-                        moe_ep=False, moe_ep_fsdp=False, d_rnn=0,
-                        seq_parallel=False)
+# LMConfig fields of the multi-card work, which is not ported, with the
+# only value the port takes
+_UNPORTED_FIELDS = dict(moe_ep=False, moe_ep_fsdp=False, seq_parallel=False)
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +92,8 @@ class LMConfig:
     rope_theta: float = 10000.0
     window: Optional[int] = None        # sliding window for "local"
     tie_embeddings: bool = False
-    # MoE, RG-LRU and sequence parallelism: not ported (only defaults)
+    # MoE (where channel == "moe"); the expert-parallel dispatch is not
+    # ported (only its defaults)
     n_experts: int = 0
     top_k: int = 0
     moe_d_ff: int = 0
@@ -94,7 +101,7 @@ class LMConfig:
     moe_capacity_factor: float = 1.25
     moe_ep: bool = False
     moe_ep_fsdp: bool = False
-    d_rnn: int = 0
+    d_rnn: int = 0                      # RG-LRU width (0 -> d_model)
     # "none": token ids; "stub": precomputed (B, S, D) embeddings
     frontend: str = "none"
     dtype: Any = torch.bfloat16
@@ -113,9 +120,9 @@ class LMConfig:
         for field, default in _UNPORTED_FIELDS.items():
             if getattr(self, field) != default:
                 raise NotImplementedError(
-                    f"LMConfig.{field}={getattr(self, field)!r}: MoE, "
-                    f"RG-LRU and sequence parallelism are not ported yet "
-                    f"({_UNPORTED})")
+                    f"LMConfig.{field}={getattr(self, field)!r}: the "
+                    f"expert-parallel dispatch and sequence parallelism "
+                    f"are not ported yet ({_UNPORTED})")
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}")
 
@@ -147,34 +154,53 @@ class LMConfig:
             causal=True,
             window=self.window if mixer == "local" else None)
 
+    def moe_spec(self) -> NN.MoESpec:
+        return NN.MoESpec(n_experts=self.n_experts, top_k=self.top_k,
+                          d_model=self.d_model, d_ff=self.moe_d_ff,
+                          capacity_factor=self.moe_capacity_factor,
+                          shared_expert=self.shared_expert)
+
 
 def _check_kind(kind: Tuple[str, str]) -> None:
     mixer, channel = kind
     if mixer not in MIXERS or channel not in CHANNELS \
             or (channel == "rwkv_cm") != (mixer == "rwkv"):
-        raise NotImplementedError(
-            f"block kind {tuple(kind)} is not ported yet (mixers "
-            f"{MIXERS} with 'dense', or ('rwkv', 'rwkv_cm')); {_UNPORTED}")
+        raise ValueError(
+            f"block kind {tuple(kind)}: the mixers {MIXERS[:3]} pair with "
+            f"'dense' or 'moe', and 'rwkv' with 'rwkv_cm'")
 
 
 def param_count(cfg: LMConfig) -> Tuple[int, int]:
     """(total, active) parameter counts, as the reference counts them."""
     D, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    total = cfg.vocab * D                                # embed
+    total = active = cfg.vocab * D                       # embed
     if not cfg.tie_embeddings:
         total += D * cfg.vocab
+        active += D * cfg.vocab
     for kind in cfg.kinds:
         _check_kind(kind)
         mixer, channel = kind
         if mixer in ("attn", "local"):
-            total += D * H * hd + 2 * D * KH * hd + H * hd * D
+            n = D * H * hd + 2 * D * KH * hd + H * hd * D
+        elif mixer == "rglru":
+            R = cfg.d_rnn or D
+            n = 2 * D * R + 2 * R * R + R * D
         else:
-            total += 5 * D * D + 2 * D * 64              # proj + decay lora
+            n = 5 * D * D + 2 * D * 64                   # proj + decay lora
         if channel == "dense":
-            total += (3 if cfg.ffn_kind == "swiglu" else 2) * D * cfg.d_ff
-        else:
-            total += 2 * D * cfg.d_ff + D * D            # channel mix
-    return total, total
+            n += (3 if cfg.ffn_kind == "swiglu" else 2) * D * cfg.d_ff
+        elif channel == "rwkv_cm":
+            n += 2 * D * cfg.d_ff + D * D
+        total += n
+        active += n
+        if channel == "moe":
+            per = 3 * D * cfg.moe_d_ff
+            total += cfg.n_experts * per + D * cfg.n_experts
+            active += cfg.top_k * per + D * cfg.n_experts
+            if cfg.shared_expert:
+                total += per
+                active += per
+    return total, active
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +233,10 @@ def block_init(generator: torch.Generator, cfg: LMConfig,
     if mixer in ("attn", "local"):
         p["attn"] = NN.attn_init(generator, cfg.attn_spec(mixer), cfg.dtype,
                                  device)
+    elif mixer == "rglru":
+        p["rglru"] = RC.rglru_init(generator, cfg.d_model,
+                                   cfg.d_rnn or cfg.d_model,
+                                   dtype=cfg.dtype, device=device)
     else:
         p["rwkv"] = RC.rwkv_init(generator, cfg.d_model, cfg.n_heads,
                                  cfg.d_ff, dtype=cfg.dtype, device=device)
@@ -214,6 +244,8 @@ def block_init(generator: torch.Generator, cfg: LMConfig,
         p["ffn"] = NN.ffn_init(generator, cfg.d_model, cfg.d_ff,
                                cfg.ffn_kind, cfg.dtype,
                                sparse=cfg.sparse_ffn, device=device)
+    elif channel == "moe":
+        p["moe"] = NN.moe_init(generator, cfg.moe_spec(), cfg.dtype, device)
     return p
 
 
@@ -221,7 +253,8 @@ def block_cache_init(cfg: LMConfig, kind: Tuple[str, str], batch: int,
                      max_len: int, device: DeviceLike = None) -> dict:
     """Decode-time state of one block on ``device`` (the card unless
     named): a (batch, max_len) KV cache for ``attn``, a ring of
-    ``window`` slots for ``local``, the O(1) recurrent state for RWKV."""
+    ``window`` slots for ``local``, the O(1) recurrent state for RG-LRU
+    and RWKV."""
     _check_kind(kind)
     device = resolve_device(device)
     mixer, _ = kind
@@ -229,22 +262,16 @@ def block_cache_init(cfg: LMConfig, kind: Tuple[str, str], batch: int,
         return NN.attn_cache_init(cfg.attn_spec(mixer), batch, max_len,
                                   cfg.dtype, device,
                                   int8=cfg.kv_cache_dtype == "int8")
+    if mixer == "rglru":
+        return RC.rglru_state_init(batch, cfg.d_rnn or cfg.d_model,
+                                   dtype=cfg.dtype, device=device)
     return RC.rwkv_state_init(batch, cfg.d_model, cfg.n_heads, cfg.dtype,
                               device=device)
 
 
-def _slot_index(value, device) -> torch.Tensor:
-    """A one-element long index from a Python int (a fill, no host to
-    device copy) or a 0-d tensor."""
-    if isinstance(value, torch.Tensor):
-        return value.reshape(1).to(device=device, dtype=torch.long)
-    return torch.full((1,), int(value), dtype=torch.long, device=device)
-
-
 def block_apply(cfg: LMConfig, kind: Tuple[str, str], p: dict,
                 x: torch.Tensor, positions: Optional[torch.Tensor],
-                cache: Optional[dict]
-                ) -> Tuple[torch.Tensor, Optional[dict]]:
+                cache: Optional[dict]):
     """One block.  Modes:
 
     * ``cache`` None             -> forward, new cache None;
@@ -253,27 +280,36 @@ def block_apply(cfg: LMConfig, kind: Tuple[str, str], p: dict,
       the cache.
 
     ``positions`` (S,) are the tokens' positions (the attention blocks
-    need them; RWKV does not).  An attention cache is written in place
-    and returned; an RWKV state is returned new.  (The reference also
-    returns MoE's auxiliary loss, always 0 without MoE.)"""
+    need them; the recurrent ones do not).  An attention cache is
+    written in place and returned; a recurrent state is returned new.
+    Returns (x, new cache, aux): ``aux`` is an MoE block's float32
+    load-balancing term, 0.0 for any other block, as in the reference."""
     _check_kind(kind)
     mixer, channel = kind
     h = _norm_apply(cfg, p["norm1"], x)
     if mixer in ("attn", "local"):
         a, new_mix = NN.attn_apply(p["attn"], cfg.attn_spec(mixer), h,
                                    positions, cache)
+    elif mixer == "rglru":
+        a, new_mix = RC.rglru_apply(p["rglru"], h, cache)
     else:
         a, new_mix = RC.rwkv_time_mix(p["rwkv"], cfg.n_heads, h, cache,
                                       use_kernel=cfg.use_wkv_kernel)
     x = x + a
     h2 = _norm_apply(cfg, p["norm2"], x)
+    aux = 0.0
     if channel == "dense":
         f = NN.ffn_apply(p["ffn"], cfg.ffn_kind, h2)
+    elif channel == "moe":
+        # decode keeps every assignment: capacity eviction is a training
+        # throughput trade, never wanted at serve time
+        decode = cache is not None and x.shape[1] == 1
+        f, aux = NN.moe_apply(p["moe"], cfg.moe_spec(), h2, no_drop=decode)
     else:
         f, cm_new = RC.rwkv_channel_mix(p["rwkv"], h2, cache)
         if cache is not None:
             new_mix = {**new_mix, **cm_new}
-    return x + f, (new_mix if cache is not None else None)
+    return x + f, (new_mix if cache is not None else None), aux
 
 
 # ---------------------------------------------------------------------------
@@ -290,8 +326,7 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
     scale = 1.0 / math.sqrt(D)
 
     def normal(shape):
-        return (torch.randn(shape, generator=generator, device=device,
-                            dtype=torch.float32) * scale).to(cfg.dtype)
+        return NN._normal(generator, shape, scale, cfg.dtype, device)
 
     p: dict = {"embed": {"table": normal((cfg.vocab, D))},
                "final_norm": _norm_init(cfg, D, device)}
@@ -357,38 +392,26 @@ def reference_site(cfg: LMConfig, layer: int) -> Tuple[str, Optional[int]]:
     return f"['tail']/[{j - G * P}]", None
 
 
-def _tensor(a, device) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":       # ml_dtypes; exact through float32
-        return torch.from_numpy(a.astype(np.float32)).to(
-            device=device, dtype=torch.bfloat16)
-    return torch.from_numpy(np.array(a)).to(device)   # a writable copy
-
-
-def _to_torch(node, device):
-    if isinstance(node, dict):
-        return {k: _to_torch(v, device) for k, v in node.items()}
-    if isinstance(node, (list, tuple)):
-        return [_to_torch(v, device) for v in node]
-    return _tensor(node, device)
-
-
-def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig,
-                      device: DeviceLike = None) -> dict:
-    """The reference's ``init_params`` tree (or a tree of its shape, such
-    as AdamW's moments), its leaves converted to numpy, as the port's
-    parameters: the scan stacks unstacked into one entry per layer,
-    every leaf (``*_theta`` / ``*_sign`` included) in its own dtype on
-    ``device`` (the card unless named)."""
-    device = resolve_device(device)
+def params_from_stacked(tree: Dict[str, Any], cfg: LMConfig) -> dict:
+    """The reference's parameter tree (or one of its shape, such as
+    AdamW's moments) with tensor leaves, as the port's parameters: each
+    layer's entry indexes the scan stacks (views, no copy)."""
     blocks = layers_from_stacked(tree, cfg)
     if len(blocks) != cfg.n_layers:
         raise ValueError(f"tree holds {len(blocks)} layers, config "
                          f"{cfg.n_layers}")
-    p = {k: _to_torch(tree[k], device) for k in ("embed", "final_norm",
-                                                   "head") if k in tree}
-    p["blocks"] = [_to_torch(b, device) for b in blocks]
+    p = {k: tree[k] for k in ("embed", "final_norm", "head") if k in tree}
+    p["blocks"] = blocks
     return p
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg: LMConfig,
+                      device: DeviceLike = None) -> dict:
+    """``params_from_stacked`` of the reference's tree with numpy leaves,
+    every leaf (``*_theta`` / ``*_sign`` included) in its own dtype on
+    ``device`` (the card unless named)."""
+    return params_from_stacked(
+        NN.tree_from_numpy(tree, resolve_device(device)), cfg)
 
 
 def train_state_from_numpy(state: Dict[str, Any], cfg: LMConfig,
@@ -408,6 +431,45 @@ def train_state_from_numpy(state: Dict[str, Any], cfg: LMConfig,
                 nu=params_from_numpy(opt.nu, cfg, device))}
 
 
+def params_to_stacked(params: dict, cfg: LMConfig) -> dict:
+    """The inverse of ``params_from_stacked``: the port's parameters (or a
+    tree of their shape) in the reference's layout, each period
+    position's layers stacked on a leading group axis (``torch.stack``,
+    so on the parameters' device)."""
+    tree = {k: params[k] for k in ("embed", "final_norm", "head")
+            if k in params}
+    tree.update(layers_to_stacked(params["blocks"], cfg, torch.stack))
+    return tree
+
+
+def train_state_to_stacked(state: dict, cfg: LMConfig) -> dict:
+    """The port's LM train state in the reference's layout (params and
+    both AdamW moments through ``params_to_stacked``): what an LM
+    checkpoint holds, so that the reference's ``restore_checkpoint``
+    reads it leaf for leaf."""
+    opt = state["opt"]
+    return {"params": params_to_stacked(state["params"], cfg),
+            "opt": opt._replace(mu=params_to_stacked(opt.mu, cfg),
+                                nu=params_to_stacked(opt.nu, cfg))}
+
+
+def train_state_from_stacked(tree: dict, cfg: LMConfig) -> dict:
+    """The inverse of ``train_state_to_stacked``: a restored checkpoint
+    as the port's train state (params and moments through
+    ``params_from_stacked``)."""
+    opt = tree["opt"]
+    return {"params": params_from_stacked(tree["params"], cfg),
+            "opt": opt._replace(mu=params_from_stacked(opt.mu, cfg),
+                                nu=params_from_stacked(opt.nu, cfg))}
+
+
+def checkpoint_layout(cfg: LMConfig):
+    """``runtime.Trainer``'s ``layout`` for an LM train state: its
+    checkpoints hold the reference's stacked layout."""
+    return (lambda state: train_state_to_stacked(state, cfg),
+            lambda tree: train_state_from_stacked(tree, cfg))
+
+
 def _embed(cfg: LMConfig, params: dict,
            inputs: torch.Tensor) -> torch.Tensor:
     """Token ids (B, S) -> embeddings; a stub frontend's precomputed
@@ -425,46 +487,56 @@ def _unembed(cfg: LMConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 
 def _run_blocks(params: dict, cfg: LMConfig, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[dict],
-                remat: bool = False
-                ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Every block in layer order.  With ``remat`` (and gradients on)
-    each whole period after the prefix runs under
-    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
-    its period body): its activations are recomputed in the backward
-    pass instead of kept."""
+                remat: bool = False):
+    """Every block in layer order -> (x, new cache, the MoE blocks'
+    load-balancing terms summed in layer order from 0.0; a Python 0.0
+    when no block is MoE).  With ``remat`` (and gradients on) each whole
+    period after the prefix runs under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of its period body): its activations
+    are recomputed in the backward pass instead of kept."""
     kinds, blocks = cfg.kinds, params["blocks"]
     if cache is None and remat and torch.is_grad_enabled():
         from torch.utils.checkpoint import checkpoint
 
         def run(x, lo, hi):
+            total = 0.0
             for i in range(lo, hi):
-                x, _ = block_apply(cfg, kinds[i], blocks[i], x, positions,
-                                   None)
-            return x
+                x, _, aux = block_apply(cfg, kinds[i], blocks[i], x,
+                                        positions, None)
+                total = total + aux
+            return x, total
 
         n_pre, P = len(cfg.prefix), len(cfg.pattern)
         end = n_pre + cfg.n_scan_groups * P
-        x = run(x, 0, n_pre)
+        x, total = run(x, 0, n_pre)
         for lo in range(n_pre, end, P):
-            x = checkpoint(run, x, lo, lo + P, use_reentrant=False)
-        return run(x, end, cfg.n_layers), None
-    new_blocks = []
+            x, aux = checkpoint(run, x, lo, lo + P, use_reentrant=False)
+            total = total + aux
+        x, aux = run(x, end, cfg.n_layers)
+        return x, None, total + aux
+    new_blocks, total = [], 0.0
     for i, (kind, bp) in enumerate(zip(kinds, blocks)):
         bc = cache["blocks"][i] if cache is not None else None
-        x, nc = block_apply(cfg, kind, bp, x, positions, bc)
+        x, nc, aux = block_apply(cfg, kind, bp, x, positions, bc)
         new_blocks.append(nc)
-    return x, ({"blocks": new_blocks} if cache is not None else None)
+        total = total + aux
+    return x, ({"blocks": new_blocks} if cache is not None else None), total
 
 
 def forward(params: dict, cfg: LMConfig, inputs: torch.Tensor,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward: tokens (B, S) or stub embeddings (B, S, D)
-    -> logits float32 (B, S, V).  Carries gradients."""
+    -> (logits float32 (B, S, V), the MoE blocks' summed load-balancing
+    term, a float32 0-d tensor, 0 without MoE), as the reference
+    returns.  Carries gradients."""
     x = _embed(cfg, params, inputs)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _run_blocks(params, cfg, x, positions, None, remat)
+    x, _, aux = _run_blocks(params, cfg, x, positions, None, remat)
     x = _norm_apply(cfg, params["final_norm"], x)
-    return _unembed(cfg, params, x)
+    logits = _unembed(cfg, params, x)
+    if not isinstance(aux, torch.Tensor):
+        aux = logits.new_zeros(())
+    return logits, aux
 
 
 @torch.no_grad()
@@ -475,7 +547,7 @@ def prefill(params: dict, cfg: LMConfig, inputs: torch.Tensor,
     x = _embed(cfg, params, inputs)
     positions = torch.arange(x.shape[1], device=x.device)
     cache = init_cache(cfg, x.shape[0], max_len, x.device)
-    x, new_cache = _run_blocks(params, cfg, x, positions, cache)
+    x, new_cache, _ = _run_blocks(params, cfg, x, positions, cache)
     xl = _norm_apply(cfg, params["final_norm"], x[:, -1:])
     return _unembed(cfg, params, xl)[:, 0], new_cache
 
@@ -486,8 +558,8 @@ def decode_step(params: dict, cfg: LMConfig, cache: dict,
     """One-token decode: token (B, 1) (or stub (B, 1, D)) at position
     ``pos`` (an int, or a 0-d tensor).  Returns (logits (B, V), cache)."""
     x = _embed(cfg, params, token)
-    positions = _slot_index(pos, x.device)
-    x, new_cache = _run_blocks(params, cfg, x, positions, cache)
+    positions = NN.slot_index(pos, x.device)
+    x, new_cache, _ = _run_blocks(params, cfg, x, positions, cache)
     x = _norm_apply(cfg, params["final_norm"], x)
     return _unembed(cfg, params, x)[:, 0], new_cache
 
@@ -508,13 +580,13 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
 
 
 def lm_loss(params: dict, cfg: LMConfig, tokens: torch.Tensor,
-            labels: torch.Tensor, remat: bool = True
-            ) -> Tuple[torch.Tensor, Dict]:
-    """Mean next-token NLL and its metrics.  (The reference adds MoE's
-    auxiliary loss, which waits with MoE.)"""
-    logits = forward(params, cfg, tokens, remat=remat)
+            labels: torch.Tensor, remat: bool = True,
+            aux_weight: float = 0.01) -> Tuple[torch.Tensor, Dict]:
+    """Mean next-token NLL plus ``aux_weight`` times the MoE
+    load-balancing term; metrics ``loss`` (the NLL) and ``aux``."""
+    logits, aux = forward(params, cfg, tokens, remat=remat)
     loss = torch.mean(softmax_xent(logits, labels))
-    return loss, {"loss": loss}
+    return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 
 def sparsity_config(cfg: LMConfig):
@@ -592,6 +664,22 @@ def _tree_rebuild(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
+def value_and_grad(loss_fn, params) -> Tuple[Dict, Any]:
+    """``loss_fn(params) -> (total, metrics)`` differentiated with respect
+    to every leaf of ``params`` -> (metrics detached, gradients as a tree
+    of ``params``' shape; zeros for a leaf the loss does not reach)."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    req = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    with torch.enable_grad():
+        total, metrics = loss_fn(_tree_rebuild(params, req))
+        grads = torch.autograd.grad(total, req, allow_unused=True)
+    grads = [torch.zeros_like(r) if g is None else g
+             for r, g in zip(req, grads)]
+    return ({k: v.detach() for k, v in metrics.items()},
+            _tree_rebuild(params, grads))
+
+
 def make_train_step(cfg: LMConfig, optimizer, remat: bool = True,
                     grad_clip: float = 1.0, lr_for_sparse: float = 1e-3,
                     accum: int = 1):
@@ -607,13 +695,13 @@ def make_train_step(cfg: LMConfig, optimizer, remat: bool = True,
     takes them).  ``accum > 1`` splits the batch into that many
     micro-batches and averages their gradients, summed in float32;
     ``remat`` recomputes each period's activations in the backward pass.
-    Metrics are device tensors: ``loss``, ``grad_norm``.
+    Metrics are device tensors: ``loss``, ``aux``, ``grad_norm``.
 
     The WKV kernel has no backward, so RWKV blocks train through the
     plain chunked WKV: the step runs ``cfg`` with ``use_wkv_kernel``
     off."""
     from repro_torch.optim.adamw import (apply_updates, clip_by_global_norm,
-                                         tree_leaves, tree_map)
+                                         tree_map)
 
     opt_init, opt_update = optimizer
     cfg = dataclasses.replace(cfg, use_wkv_kernel=False)
@@ -623,16 +711,9 @@ def make_train_step(cfg: LMConfig, optimizer, remat: bool = True,
         return {"params": params, "opt": opt_init(params)}
 
     def grads_of(params, batch):
-        req = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
-        with torch.enable_grad():
-            total, metrics = lm_loss(_tree_rebuild(params, req), cfg,
-                                     batch["tokens"], batch["labels"],
-                                     remat=remat)
-            grads = torch.autograd.grad(total, req, allow_unused=True)
-        grads = [torch.zeros_like(r) if g is None else g
-                 for r, g in zip(req, grads)]
-        return ({k: v.detach() for k, v in metrics.items()},
-                _tree_rebuild(params, grads))
+        return value_and_grad(
+            lambda p: lm_loss(p, cfg, batch["tokens"], batch["labels"],
+                              remat=remat), params)
 
     def step(state, batch, draws=None):
         params = state["params"]

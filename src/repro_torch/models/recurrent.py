@@ -1,5 +1,15 @@
-"""RWKV6 (Finch) time mix and channel mix (port of the RWKV half of
-``repro.models.recurrent``; RG-LRU waits, ``ROADMAP.md`` Queue 1 item 6).
+"""Recurrent blocks (port of ``repro.models.recurrent``): the RG-LRU of
+RecurrentGemma / Griffin, and RWKV6 (Finch) time mix and channel mix.
+
+**RG-LRU.**  h_t = a_t h_{t-1} + b_t per channel, with the decay
+a_t = exp(-8 softplus(Lambda) r_t) and b_t = sqrt(1 - a_t^2) (i_t u_t).
+The reference runs it with ``jax.lax.associative_scan``; ``_lru_scan``
+here is a Hillis-Steele doubling over the time axis, ceil(log2 S)
+passes of (a, b) <- (a a_shift, b a_shift + b_shift), which multiplies
+decays directly.  It never forms a cumulative decay to divide by: at
+the floor (Lambda = 6, r = 1) a token's log-decay is about -48, so a
+chunk's product underflows to 0 and a factored exp(cumsum) form would
+divide by it.  Decode is the same function at S = 1.
 
 The WKV recurrence, per (batch, head), state S in R^{K x V}:
 
@@ -28,16 +38,114 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.layers import _normal
 
 LOG_DECAY_MIN = -1.0
 WKV_CHUNK = 32
 
 
-def _normal(g: torch.Generator, shape, scale: float, dtype,
-            device) -> torch.Tensor:
-    return (torch.randn(shape, generator=g, device=device,
-                        dtype=torch.float32) * scale).to(dtype)
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin recurrent block)
+# ---------------------------------------------------------------------------
 
+def rglru_init(generator: torch.Generator, d_model: int, d_rnn: int,
+               conv_width: int = 4, dtype=torch.bfloat16,
+               device: DeviceLike = None) -> dict:
+    """One RG-LRU mixer's weights, drawn from ``generator`` on ``device``
+    (the card unless named); the reference's shapes, scales and dtypes
+    (Lambda float32, spaced so the decay sits in [0.9, 0.999])."""
+    device = resolve_device(device)
+    sd, sr = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_rnn)
+
+    def n(shape, scale):
+        return _normal(generator, shape, scale, dtype, device)
+
+    return {
+        "w_x": n((d_model, d_rnn), sd),
+        "w_y": n((d_model, d_rnn), sd),
+        "conv_w": n((conv_width, d_rnn), 0.1),
+        "w_rgate": n((d_rnn, d_rnn), sr),
+        "w_igate": n((d_rnn, d_rnn), sr),
+        "lam": torch.linspace(2.0, 6.0, d_rnn, dtype=torch.float32,
+                              device=device),
+        "w_out": n((d_rnn, d_model), sr),
+    }
+
+
+def _causal_conv(u: torch.Tensor, w: torch.Tensor,
+                 state: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv along S.  u: (B, S, R); w: (W, R); state:
+    (B, W-1, R), the inputs before u.  The W taps are summed in order
+    from tap 0, in u's dtype.  Returns (out, the last W-1 inputs)."""
+    W, S = w.shape[0], u.shape[1]
+    if state is None:
+        state = torch.zeros((u.shape[0], W - 1, u.shape[2]), dtype=u.dtype,
+                            device=u.device)
+    ext = torch.cat([state.to(u.dtype), u], dim=1)      # (B, S+W-1, R)
+    out = ext[:, 0:S] * w[0]
+    for i in range(1, W):
+        out = out + ext[:, i:i + S] * w[i]
+    return out, ext[:, S:]
+
+
+def _lru_scan(a: torch.Tensor, b: torch.Tensor,
+              h0: Optional[torch.Tensor]) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t along axis 1 (h_{-1} = h0), by doubling:
+    after the pass of shift d, (a_t, b_t) compose the up to 2d steps
+    ending at t.  Decays are only multiplied (module docstring)."""
+    if h0 is not None:                   # fold the initial state into b_0
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    S, d = a.shape[1], 1
+    while d < S:
+        a_r, b_r = a[:, d:], b[:, d:]
+        b = torch.cat([b[:, :d], b[:, :-d] * a_r + b_r], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a_r], dim=1)
+        d *= 2
+    return b
+
+
+def rglru_apply(p: dict, x: torch.Tensor, state: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, dict]:
+    """x: (B, S, D) -> (out (B, S, D), new state {h, conv}).  The gates
+    are float32 products, as in the reference; ``state`` None starts
+    from zeros."""
+    u = x @ p["w_x"]
+    y = F.gelu(x @ p["w_y"], approximate="tanh")   # jax.nn.gelu's default
+    u, new_conv = _causal_conv(u, p["conv_w"],
+                               state["conv"] if state is not None else None)
+    uf = u.float()
+    r = torch.sigmoid(uf @ p["w_rgate"].float())
+    i = torch.sigmoid(uf @ p["w_igate"].float())
+    log_a = -8.0 * F.softplus(p["lam"]) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) \
+        * (i * uf)
+    h = _lru_scan(a, b, state["h"] if state is not None else None)
+    out = (h * y.float()).to(x.dtype) @ p["w_out"]
+    return out, {"h": h[:, -1], "conv": new_conv}
+
+
+def rglru_decode(p: dict, x: torch.Tensor, state: dict
+                 ) -> Tuple[torch.Tensor, dict]:
+    """Single-token step; x: (B, 1, D)."""
+    return rglru_apply(p, x, state)
+
+
+def rglru_state_init(batch: int, d_rnn: int, conv_width: int = 4,
+                     dtype=torch.bfloat16, device: DeviceLike = None) -> dict:
+    """Zero decode state on ``device`` (the card unless named): h float32
+    (B, R), the conv's last inputs (B, W-1, R) in ``dtype``."""
+    device = resolve_device(device)
+    return {"h": torch.zeros((batch, d_rnn), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, conv_width - 1, d_rnn), dtype=dtype,
+                                device=device)}
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 time mix + channel mix
+# ---------------------------------------------------------------------------
 
 def rwkv_init(generator: torch.Generator, d_model: int, n_heads: int,
               d_ff: int, lora_rank: int = 64, dtype=torch.bfloat16,

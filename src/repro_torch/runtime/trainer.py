@@ -10,6 +10,11 @@
 * resume: ``try_resume`` restores the newest checkpoint into the
   current state's structure and devices.
 
+A ``layout`` pair ``(to_saved, from_saved)`` maps the state to the tree
+a checkpoint holds and back (``models.lm.checkpoint_layout`` gives an
+LM's the reference's stacked layout); without one the state is saved as
+it is.
+
 The step function is any ``(state, batch) -> (state, metrics)`` that
 returns a new state and leaves the one it was given as it was (as the
 port's ``models.lm.make_train_step`` does): a failed step then leaves
@@ -20,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -28,6 +33,10 @@ from repro_torch.checkpoint import AsyncCheckpointer, CheckpointManager
 from repro_torch.runtime.straggler import StragglerMonitor
 
 log = logging.getLogger("repro_torch.runtime")
+
+
+def _same(tree: Any) -> Any:
+    return tree
 
 
 @dataclasses.dataclass
@@ -44,7 +53,9 @@ class Trainer:
     def __init__(self, cfg: TrainerConfig,
                  step_fn: Callable[[Any, Any], Any],
                  state: Any,
-                 failure_hook: Optional[Callable[[int], None]] = None):
+                 failure_hook: Optional[Callable[[int], None]] = None,
+                 layout: Optional[Tuple[Callable[[Any], Any],
+                                        Callable[[Any], Any]]] = None):
         self.cfg = cfg
         self.step_fn = step_fn
         self.state = state
@@ -52,6 +63,7 @@ class Trainer:
         self.ckpt = AsyncCheckpointer(self.manager)
         self.monitor = StragglerMonitor(threshold=cfg.straggler_threshold)
         self.failure_hook = failure_hook   # test injection point
+        self.to_saved, self.from_saved = layout or (_same, _same)
         self.step = 0
         self.history: List[Dict[str, float]] = []
         self.recoveries = 0
@@ -59,16 +71,17 @@ class Trainer:
 
     # -- checkpoint/restore -------------------------------------------------
     def save(self) -> None:
-        self.ckpt.save(self.step, {"state": self.state, "step": self.step})
+        self.ckpt.save(self.step, {"state": self.to_saved(self.state),
+                                   "step": self.step})
 
     def try_resume(self, shardings: Any = None) -> bool:
         """Returns True if a checkpoint was restored."""
         try:
             tree, step = self.manager.restore_latest(
-                {"state": self.state, "step": 0}, shardings)
+                {"state": self.to_saved(self.state), "step": 0}, shardings)
         except FileNotFoundError:
             return False
-        self.state = tree["state"]
+        self.state = self.from_saved(tree["state"])
         self.step = int(tree["step"])
         log.info("resumed at step %d", self.step)
         return True

@@ -36,7 +36,7 @@ CPU = torch.device("cpu")
 
 
 def _t(a) -> torch.Tensor:
-    return TLM._tensor(np.asarray(a), CPU)
+    return TNN.from_numpy(np.asarray(a), CPU)
 
 
 def _close(got, want, what, **tol):
@@ -252,7 +252,7 @@ def _run_reference(jcfg, jparams, toks):
 
 def _run_port(tcfg, tparams, toks):
     t = torch.from_numpy(toks)
-    fwd = TLM.forward(tparams, tcfg, t).detach()
+    fwd = TLM.forward(tparams, tcfg, t)[0].detach()
     logits, cache = TR.make_prefill_step(tcfg, P + GEN)(tparams, t[:, :P])
     caches = [[{k: v.clone() for k, v in b.items()} for b in cache["blocks"]]]
     out = [logits]
@@ -335,7 +335,7 @@ def test_chameleon_stub_embeddings_match_reference():
     emb = _rng_array(9, (B, 7, jcfg.d_model)) * 0.1
     want, _ = jax.jit(lambda p, e: JLM.forward(p, jcfg, e))(
         jparams, jnp.asarray(emb))
-    got = TLM.forward(tparams, tcfg, torch.from_numpy(emb))
+    got, _ = TLM.forward(tparams, tcfg, torch.from_numpy(emb))
     assert got.shape == (B, 7, jcfg.vocab)
     _close(got, want, "chameleon (B, S, D) forward")
 
@@ -375,6 +375,6 @@ def test_int8_kv_cache_matches_reference():
 def test_param_count_matches_reference_for_every_ported_arch():
     for arch in TR.ARCHS:
         for smoke in (False, True):
-            assert TLM.param_count(TR.get_config(arch, smoke)) == \
-                JLM.param_count(JR.get_config(arch, smoke)), (arch, smoke)
+            assert TR.param_count(TR.get_config(arch, smoke)) == \
+                JR.param_count(JR.get_config(arch, smoke)), (arch, smoke)
     assert TR.param_count(TR.get_config("qwen2.5-3b"))[0] == 3_085_697_024

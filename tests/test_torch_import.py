@@ -31,7 +31,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 60, proc.stdout
+    assert n_modules >= 65, proc.stdout
 
 
 WORKER_PROBE = """
@@ -139,6 +139,10 @@ for mod in ("repro_torch.launch.train", "repro_torch.launch.serve"):
             raise
 import repro_torch.models.layers, repro_torch.models.lm
 import repro_torch.models.registry, repro_torch.optim.schedules
+import repro_torch.models.encdec, repro_torch.models.recurrent
+from repro_torch.models import registry
+for arch in registry.ARCHS:
+    registry.get_config(arch)
 import repro_torch.data.tokens, repro_torch.checkpoint.checkpoint
 import repro_torch.runtime.trainer, repro_torch.runtime.straggler
 bad = sorted(m for m in sys.modules
@@ -150,10 +154,12 @@ sys.exit(1 if bad else 0)
 
 
 def test_lm_modules_train_cli_and_examples_import_no_jax():
-    """The attention LM, its training (``models``, ``optim.schedules``,
-    ``data.tokens``, ``checkpoint``, ``runtime``), the train and serve
-    CLIs started as their own programs (``--help``) and the four
-    ``examples/torch_*.py`` load neither JAX nor anything of ``repro``."""
+    """The LMs (attention, MoE, RG-LRU, RWKV) and the encoder-decoder, the
+    config of every registered architecture, their training
+    (``models``, ``optim.schedules``, ``data.tokens``, ``checkpoint``,
+    ``runtime``), the train and serve CLIs started as their own programs
+    (``--help``) and the four ``examples/torch_*.py`` load neither JAX
+    nor anything of ``repro``."""
     env = dict(os.environ, PYTHONPATH=SRC)
     proc = subprocess.run([sys.executable, "-c", LM_PROBE,
                            os.path.join(ROOT, "examples")], env=env,

@@ -21,6 +21,7 @@ import torch
 
 from repro.configs import rwkv6_3b as JCFG
 from repro.models import lm as JLM
+from repro.models import registry as JR
 from repro_torch.configs import rwkv6_3b as TCFG
 from repro_torch.launch import serve as TSERVE
 from repro_torch.models import lm as TLM
@@ -64,7 +65,7 @@ def test_rwkv6_smoke_matches_reference_prefill_and_decode():
     tlogits, tcache = TR.make_prefill_step(tcfg, max_len)(
         tparams, torch.from_numpy(prompt))
     _close(tlogits, jlogits, "prefill logits", **TOL)
-    tfull = TLM.forward(tparams, tcfg, torch.from_numpy(prompt))
+    tfull, _ = TLM.forward(tparams, tcfg, torch.from_numpy(prompt))
     assert tfull.shape == (B, P, jcfg.vocab)
     _close(tfull[:, -1], jlogits, "forward, last position", **TOL)
 
@@ -123,21 +124,20 @@ def test_param_count_matches_reference():
 
 
 def test_unported_kinds_and_archs_raise():
-    """RG-LRU and MoE blocks, their config fields and the architectures
-    that need them (or the encoder-decoder) raise, naming the queue."""
-    for kind in (("rglru", "dense"), ("attn", "moe")):
-        cfg = dataclasses.replace(TCFG.smoke_config(), pattern=(kind,))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TLM.param_count(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TLM.init_cache(cfg, 1, 8, "cpu")
-    for field in ("n_experts", "d_rnn"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            dataclasses.replace(TCFG.smoke_config(), **{field: 8})
-    for arch in ("kimi-k2-1t-a32b", "granite-moe-1b-a400m",
-                 "recurrentgemma-9b", "whisper-tiny"):
-        with pytest.raises(KeyError, match="not ported"):
-            TR.get_config(arch)
+    """The multi-card fields (expert-parallel dispatch, its ZeRO-3 form,
+    sequence parallelism) still raise, naming the queue; every
+    architecture of the reference resolves to a port config."""
+    for field in ("moe_ep", "moe_ep_fsdp", "seq_parallel"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            dataclasses.replace(TCFG.smoke_config(), **{field: True})
+    assert sorted(TR.ARCHS) == sorted(JR.ARCHS)
+    for arch in JR.ARCHS:
+        for smoke in (False, True):
+            cfg = TR.get_config(arch, smoke)
+            assert type(cfg).__module__.startswith("repro_torch.")
+            assert cfg.name == JR.get_config(arch, smoke).name
+    with pytest.raises(KeyError, match="unknown arch"):
+        TR.get_config("no-such-arch")
 
 
 def test_lm_entry_points_need_a_card_unless_told(monkeypatch):
@@ -227,9 +227,10 @@ def test_wkv_kernel_refuses_gradients_and_the_train_step_turns_it_off():
     with pytest.raises(RuntimeError, match="no backward"):
         TLM.block_apply(tcfg, tcfg.kinds[0], p, x, None, None)
     plain = dataclasses.replace(tcfg, use_wkv_kernel=False)
-    y, _ = TLM.block_apply(plain, tcfg.kinds[0], p, x, None, None)
+    y, _, _ = TLM.block_apply(plain, tcfg.kinds[0], p, x, None, None)
     assert y.requires_grad
     new, m = step(state, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
-    assert np.isfinite(float(m["loss"])) and set(m) == {"loss", "grad_norm"}
+    assert np.isfinite(float(m["loss"]))
+    assert set(m) == {"loss", "aux", "grad_norm"} and float(m["aux"]) == 0
     assert any(not torch.equal(a, b) for a, b in zip(
         tree_leaves(state["params"]), tree_leaves(new["params"])))
