@@ -18,9 +18,11 @@ artifacts and a hot-swap registry (port of ``examples/lut_serve.py``).
         --artifact-dir /tmp/lut-artifacts
 
 It runs on the CUDA card unless ``--device`` names another device.
-``--shards`` (a batch sharded over cards) is not ported yet
-(``ROADMAP.md`` Queue 1 item 5).  The fleet, two-phase swaps and SLO
-tiers are in ``python -m repro_torch.launch.serve --lut --help``.
+``--shards N`` splits each microbatch over N devices, tables
+replicated on each (the first N cards; with ``--device cpu`` the CPU as
+N entries, after ``repro_torch.device.ensure_host_devices(N)``).  The
+fleet, two-phase swaps and SLO tiers are in ``python -m
+repro_torch.launch.serve --lut --help``.
 """
 import argparse
 import os
@@ -35,7 +37,7 @@ from repro_torch.launch.batching import (latency_percentiles_ms,
                                          replay_open_loop)
 from repro_torch.launch.registry import ModelRegistry
 from repro_torch.launch.serve import (build_lut_model, lut_accuracy,
-                                      lut_dataset, request_codes)
+                                      lut_dataset, lut_mesh, request_codes)
 
 # one registry, several architectures + a v2 of the first (the hot-swap
 # payload).  kw feeds launch/serve.build_lut_model.
@@ -86,16 +88,15 @@ def main(argv=None):
                     help="offered Poisson load per model (req/s)")
     ap.add_argument("--deadline-ms", type=float, default=2.0)
     ap.add_argument("--shards", type=int, default=0,
-                    help="devices for batch-sharded serving (not ported "
-                         "yet; 0 = unsharded)")
+                    help="devices to split each microbatch over (0 = "
+                         "unsharded)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.shards:
-        raise NotImplementedError(
-            "--shards: serving a batch sharded over cards is not ported "
-            "yet (see ROADMAP.md Queue 1 item 5)")
     dev = resolve_device(args.device)
+    mesh = lut_mesh(args.shards, dev)
+    if mesh is not None:
+        dev = mesh.device_list[0]
 
     art_dir = args.artifact_dir or tempfile.mkdtemp(prefix="lut-artifacts-")
     print(f"artifact store: {art_dir}  device: {dev}")
@@ -109,10 +110,11 @@ def main(argv=None):
 
     results = {}
     with ModelRegistry(args.microbatch, args.deadline_ms / 1e3,
-                       device=dev) as reg:
+                       device=dev, mesh=mesh) as reg:
         for mid in served_ids:
             reg.register(mid, arts[mid])
-        print(f"registry serving {reg.model_ids()}")
+        print(f"registry serving {reg.model_ids()} "
+              f"(shards={args.shards or 1})")
         for mid in served_ids:
             print(f"  {mid}: {reg.get(mid).plan.describe()}")
 

@@ -248,7 +248,7 @@ def restore_checkpoint(path: str, template: Any,
     if shardings is not None:
         raise NotImplementedError("restoring onto a sharded layout is not "
                                   "ported yet (see ROADMAP.md Queue 1 "
-                                  "item 6)")
+                                  "item 6, the LM's multi-rank half)")
     if step is None:
         steps = _steps(path)
         if not steps:

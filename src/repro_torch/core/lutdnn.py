@@ -27,6 +27,7 @@ float32: nothing here enables TF32, which would move the theta ranking.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -212,11 +213,41 @@ def init_search_model(gen: torch.Generator, spec: ModelSpec,
             for i in range(len(spec.widths))]
 
 
-def _standardize(z: torch.Tensor) -> torch.Tensor:
-    """Per-neuron batch standardisation over the batch axis (-2): BN
-    without running stats, with the population variance."""
-    var, mean = torch.var_mean(z, dim=-2, keepdim=True, correction=0)
-    return (z - mean) * torch.rsqrt(var + 1e-5)
+class _Standardize(torch.autograd.Function):
+    """``y + bias`` with ``y`` the per-neuron standardisation of ``z``
+    over the batch axis (-2), population variance, eps 1e-5 (BN without
+    running stats).  Every sum over the batch, forward (mean, variance)
+    and backward (``dL/dz = s (g - mean(g) - y mean(g y))``, ``dL/dbias
+    = sum(g)``), runs along the contiguous axis of a (.., n, B) copy: on
+    the card, a sum along axis -2 of a (P, B, n) stack is laid out by
+    PyTorch from P * n, so a population split over a mesh would round
+    those sums otherwise than the whole population on one device (a
+    10-wide layer's do), and the chaotic search would part from it."""
+
+    @staticmethod
+    def forward(ctx, z, bias):
+        zt = z.transpose(-1, -2).contiguous()
+        var, mean = torch.var_mean(zt, dim=-1, keepdim=True, correction=0)
+        inv = torch.rsqrt(var + 1e-5)
+        y = (zt - mean) * inv
+        ctx.save_for_backward(y, inv)
+        ctx.bias_shape = bias.shape
+        return (y + bias.unsqueeze(-1)).transpose(-1, -2).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        y, inv = ctx.saved_tensors
+        gt = g.transpose(-1, -2).contiguous()
+        gz = inv * (gt - gt.mean(-1, keepdim=True)
+                    - y * (gt * y).mean(-1, keepdim=True))
+        return (gz.transpose(-1, -2).contiguous(),
+                gt.sum(-1).sum_to_size(ctx.bias_shape))
+
+
+def _standardize(z: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Per-neuron batch standardisation over the batch axis (-2) plus
+    ``bias`` (``_Standardize``)."""
+    return _Standardize.apply(z, bias)
 
 
 def _matmul(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -245,7 +276,7 @@ def _proxy_forward(tlayers: Sequence[ThetaLayer], x: torch.Tensor,
         w = tl.effective_weight()
         if probes is not None:
             w = w + probes[i]
-        z = _standardize(_matmul(h, w)) + tl.bias.unsqueeze(-2)
+        z = _standardize(_matmul(h, w), tl.bias)
         h = lspecs[i].out_quant.quantize(torch.relu(z)) if i < n - 1 \
             else z
     return h
@@ -472,6 +503,48 @@ def search_connectivity(gen: torch.Generator, spec: ModelSpec, batches,
             population_member(states, 0))
 
 
+def _population_shards(n_members: int, mesh) -> List[tuple]:
+    """``[(device, member indices)]``: the members split over ``mesh``
+    as ``lutdnn_population_rules`` lays out the member axis: over the
+    data axes when the count divides, else replicated (then the whole
+    population steps once, on the first entry's device)."""
+    from repro_torch.parallel import sharding as SH
+    if not isinstance(mesh, SH.Mesh):
+        raise TypeError(f"mesh must be a parallel.sharding.Mesh, got "
+                        f"{type(mesh).__name__}")
+    spec = SH.choose_spec("tlayers/0/theta", (n_members,), mesh,
+                          SH.lutdnn_population_rules(mesh))
+    entries = mesh.shard_entries(spec[0] if spec else None)
+    per = n_members // len(entries)
+    return [(mesh.device_list[e], list(range(k * per, (k + 1) * per)))
+            for k, e in enumerate(entries)]
+
+
+def _on(dev: torch.device):
+    """Make ``dev`` current for the block when it is a CUDA device."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _batch_to(batch: dict, dev: torch.device) -> dict:
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _join_states(parts: Sequence[dict], dev: torch.device) -> dict:
+    """Shards' stacked states -> one stacked state on ``dev`` (members
+    in shard order; the shared steps from the first shard)."""
+    if len(parts) == 1:
+        return parts[0]
+    cat = lambda *xs: torch.cat([x.to(dev) for x in xs])   # noqa: E731
+    first = parts[0]
+    return {"tlayers": tree_map(cat, *[p["tlayers"] for p in parts]),
+            "opt": OptState(step=first["opt"].step,
+                            mu=tree_map(cat, *[p["opt"].mu for p in parts]),
+                            nu=None),
+            "gens": [g for p in parts for g in p["gens"]],
+            "step": first["step"]}
+
+
 def search_connectivity_population(gens: Sequence[torch.Generator],
                                    spec: ModelSpec, batches, n_steps: int,
                                    mesh=None, phase_frac: float = 0.8,
@@ -484,45 +557,71 @@ def search_connectivity_population(gens: Sequence[torch.Generator],
     generator in ``gens`` (its start and its controller's draws), every
     member fed the same batches.
 
+    ``mesh`` (``parallel.sharding.Mesh``) splits the members over its
+    data axes by ``lutdnn_population_rules`` (replicated when the count
+    does not divide): each shard's sub-stack starts and steps on its
+    entry's device, drawing from its members' own generators, and sees
+    every batch.  Members never exchange data, so the split run ends
+    where the run on one device ends, bit for bit on the CPU
+    (tests/test_torch_sharded.py) and on one card (``_Standardize``;
+    chip_smoke.py ``[search]``).  With a mesh, ``device`` must be None.
+
     Returns ``(masks, scores, hist, states)``: per-layer masks (P, n_in,
     n_out); each member's accuracy with its masks applied on
     ``eval_batch`` (else the last training batch); population
     mean/min/max metrics on the integer ``history_cadence`` (final step
-    always included); the stacked end states.  ``mesh`` (members
-    sharded over cards) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "search_connectivity_population(mesh=...): the sharded "
-            "search is not ported yet (ROADMAP Queue 1 item 5)")
+    always included); the stacked end states.  With a mesh, masks,
+    scores and states are joined on the first entry's device."""
+    if mesh is not None and device is not None:
+        raise ValueError("a mesh places the members itself; pass "
+                         "device=None")
+    shards = (_population_shards(len(gens), mesh) if mesh is not None
+              else [(resolve_device(device), list(range(len(gens))))])
+    dev0 = shards[0][0]
     cfgs = search_sparsity_configs(
         spec, phase_boundary=int(n_steps * phase_frac), **sparse_kw)
     _, step = make_search_step(spec, cfgs, lr, mode=mode)
-    states = population_search_init(gens, spec, cfgs, mode=mode,
-                                    device=device)
+    parts = []
+    for dev, members in shards:
+        with _on(dev):
+            parts.append(population_search_init(
+                [gens[p] for p in members], spec, cfgs, mode=mode,
+                device=dev))
     hist = []
     cadence = history_cadence(n_steps)
     last_batch = None
     for i in range(n_steps):
         last_batch = next(batches)
-        states, metrics = step(states, last_batch)
+        metrics = []
+        for k, (dev, _) in enumerate(shards):
+            with _on(dev):
+                parts[k], m = step(parts[k], _batch_to(last_batch, dev))
+            metrics.append(m)
         if i % cadence == 0 or i == n_steps - 1:
             entry = {"step": i}
-            for k, v in metrics.items():
-                v = v.cpu()
-                entry[f"{k}_mean"] = float(torch.mean(v))
-                entry[f"{k}_min"] = float(torch.min(v))
-                entry[f"{k}_max"] = float(torch.max(v))
+            for key in metrics[0]:
+                v = torch.cat([m[key].cpu().reshape(-1) for m in metrics])
+                entry[f"{key}_mean"] = float(torch.mean(v))
+                entry[f"{key}_min"] = float(torch.min(v))
+                entry[f"{key}_max"] = float(torch.max(v))
             hist.append(entry)
-    masks = sparse_train.extract_masks(states["tlayers"], cfgs)
     # select by the accuracy of the truncated (mask-applied) network:
     # the quantity the extracted mask is selected to maximise
     score_batch = eval_batch if eval_batch is not None else last_batch
-    masked = [ThetaLayer(theta=tl.theta * m, sign=tl.sign, bias=tl.bias)
-              for tl, m in zip(states["tlayers"], masks)]
-    with torch.no_grad():
-        logits = search_forward(masked, score_batch["x"], spec)
-        scores = _member_acc(logits, score_batch["y"])
-    return masks, scores, hist, states
+    masks, scores = [], []
+    for (dev, _), st in zip(shards, parts):
+        with _on(dev):
+            mk = sparse_train.extract_masks(st["tlayers"], cfgs)
+            masked = [ThetaLayer(theta=tl.theta * m, sign=tl.sign,
+                                 bias=tl.bias)
+                      for tl, m in zip(st["tlayers"], mk)]
+            with torch.no_grad():
+                b = _batch_to(score_batch, dev)
+                logits = search_forward(masked, b["x"], spec)
+                scores.append(_member_acc(logits, b["y"]).to(dev0))
+        masks.append([m.to(dev0) for m in mk])
+    masks = [torch.cat(ms) for ms in zip(*masks)]
+    return (masks, torch.cat(scores), hist, _join_states(parts, dev0))
 
 
 def select_best_masks(masks, scores):

@@ -565,26 +565,46 @@ extern "C" int lut_desc_size() { return static_cast<int>(sizeof(LayerDesc)); }
 // memory) is a hint that CUDA rounds up to a configuration that holds the
 // launch; the last value set for each kernel is remembered so a steady
 // stream of one geometry sets it once.  The same for the most dynamic
-// shared memory a launch of each kernel may take.
-static cudaError_t set_carveout(const void* kernel, std::atomic<int>& last,
+// shared memory a launch of each kernel may take.  cudaFuncSetAttribute
+// acts on the current device only, so both are remembered per device
+// ordinal: a launch on any card sets its own attributes once.  A slot
+// holds the carveout + 1 (0: never set) or the bytes (0: never raised).
+static constexpr int kMaxDevices = 64;
+using DeviceSlots = std::atomic<int>[kMaxDevices];
+
+static cudaError_t current_device(int* ordinal) {
+  const cudaError_t e = cudaGetDevice(ordinal);
+  if (e != cudaSuccess) return e;
+  return *ordinal >= 0 && *ordinal < kMaxDevices ? cudaSuccess
+                                                 : cudaErrorInvalidDevice;
+}
+
+static cudaError_t set_carveout(const void* kernel, DeviceSlots& last,
                                 int percent) {
-  if (percent < 0 || last.exchange(percent) == percent) return cudaSuccess;
+  if (percent < 0) return cudaSuccess;
+  int dev = 0;
+  const cudaError_t e = current_device(&dev);
+  if (e != cudaSuccess) return e;
+  if (last[dev].exchange(percent + 1) == percent + 1) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout, percent);
 }
 
-static cudaError_t set_max_smem(const void* kernel, std::atomic<int>& last,
+static cudaError_t set_max_smem(const void* kernel, DeviceSlots& last,
                                 int bytes) {
-  if (bytes <= 48 * 1024 || last.load() >= bytes) return cudaSuccess;
-  last.store(bytes);
-  return cudaFuncSetAttribute(
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = current_device(&dev);
+  if (e != cudaSuccess || last[dev].load() >= bytes) return e;
+  e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) last[dev].store(bytes);
+  return e;
 }
 
-static std::atomic<int> g_carveout_fused{-1}, g_carveout_pipelined{-1},
-    g_carveout_gather{-1};
-static std::atomic<int> g_smem_fused{0}, g_smem_pipelined{0},
-    g_smem_gather{0};
+static DeviceSlots g_carveout_fused, g_carveout_pipelined,
+    g_carveout_gather;
+static DeviceSlots g_smem_fused, g_smem_pipelined, g_smem_gather;
 
 // Kernel 3 over a chain of n_layers layers (one layer: lut_gather; a
 // per_layer plan: the whole forward), one launch a layer, from one host

@@ -607,11 +607,15 @@ class FusedNet:
 
     @property
     def desc(self) -> torch.Tensor:
-        """The descriptor array in device memory (built at first use)."""
+        """The descriptor array in device memory (built at first use).
+        The copy from host memory may still be in flight when the call
+        returns, and a net may be launched from several streams (the
+        shards of a mesh on one card), so the first build waits for it."""
         if self._desc is None:
-            self._desc = torch.frombuffer(
-                bytearray(bytes(self.host_desc)),
-                dtype=torch.uint8).to(self.device)
+            desc = torch.frombuffer(bytearray(bytes(self.host_desc)),
+                                    dtype=torch.uint8).to(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
+            self._desc = desc
         return self._desc
 
     def rows(self, pipeline: bool, budget: int = SMEM_BUDGET_BYTES) -> int:

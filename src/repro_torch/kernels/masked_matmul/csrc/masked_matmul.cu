@@ -232,20 +232,28 @@ struct Launch {
 
 // The most dynamic shared memory and the carveout set for each
 // instantiation are remembered, so a steady stream of one geometry sets
-// them once.
+// them once.  cudaFuncSetAttribute acts on the current device only, so
+// both are remembered per device ordinal (a slot holds the bytes, or the
+// carveout + 1; 0: never set).
+static constexpr int kMaxDevices = 64;
+
 template <int FT, bool STAGED>
 static cudaError_t launch(const Launch& a) {
-  static std::atomic<int> max_smem{0}, carveout{-1};
+  static std::atomic<int> max_smem[kMaxDevices], carveout[kMaxDevices];
   const void* kernel =
       reinterpret_cast<const void*>(masked_mm_kernel<FT, STAGED>);
-  cudaError_t e = cudaSuccess;
-  if (a.smem_bytes > 48 * 1024 && max_smem.load() < a.smem_bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (a.smem_bytes > 48 * 1024 && max_smem[dev].load() < a.smem_bytes) {
     e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
     if (e != cudaSuccess) return e;
-    max_smem.store(a.smem_bytes);
+    max_smem[dev].store(a.smem_bytes);
   }
-  if (a.carveout >= 0 && carveout.exchange(a.carveout) != a.carveout) {
+  if (a.carveout >= 0 &&
+      carveout[dev].exchange(a.carveout + 1) != a.carveout + 1) {
     e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributePreferredSharedMemoryCarveout, a.carveout);
     if (e != cudaSuccess) return e;

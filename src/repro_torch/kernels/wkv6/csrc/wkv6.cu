@@ -44,11 +44,13 @@
 // and widened exactly; sums and the state are float32; o and the final
 // state are written in float32.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <type_traits>
 
+static constexpr int kMaxDevices = 64;  // device ordinals remembered
 static constexpr int kChunk = 16;  // tokens staged per barrier
 static constexpr int kRing = 3;    // chunks of staging buffers
 static constexpr int kDirect = 2;  // up to this many tokens: no staging
@@ -383,13 +385,22 @@ static int launch_tile(const void* r, const void* k, const void* v,
                        cudaStream_t st) {
   // Every tile's blocks are shared-memory heavy and read no device memory
   // through L1, so each kernel asks for the largest shared-memory
-  // carveout (once).
+  // carveout, once on each device (cudaFuncSetAttribute acts on the
+  // current device only).
   constexpr int jc = W * (32 / (K / R)) * CL;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      wkv6_kernel<T, K, R, CL, W>,
-      cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static std::atomic<int> carveout_set[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!carveout_set[dev].load()) {
+    e = cudaFuncSetAttribute(wkv6_kernel<T, K, R, CL, W>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    carveout_set[dev].store(1);
+  }
   wkv6_kernel<T, K, R, CL, W><<<B * H * (K / jc), W * 32, 0, st>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), logw, u, s0, o, s_end, S, H);

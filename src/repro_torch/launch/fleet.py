@@ -64,8 +64,9 @@ placement, so every contract above holds bit-for-bit over the wire
 (tests/test_torch_process_fleet.py re-pins them through real SIGKILL,
 socket partition, and in-flight slab corruption).
 
-A sharded fleet (the reference's ``mesh=``, a replica spanning several
-devices) is not ported: ``mesh`` raises ``NotImplementedError``.
+``mesh=`` (thread transport) makes every replica's registry split its
+microbatches over that device mesh; a mesh cannot cross the process
+transport, whose workers own their devices.
 """
 from __future__ import annotations
 
@@ -297,11 +298,9 @@ class LutFleet:
             raise ValueError("a fleet needs at least one replica")
         if transport not in ("thread", "process"):
             raise ValueError(f"unknown transport {transport!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded fleet (mesh=) is not ported: "
-                "lut_network_fused_sharded has no CUDA counterpart yet; "
-                "each replica serves on one device")
+        if transport == "process" and mesh is not None:
+            raise ValueError("a device mesh cannot cross the process "
+                             "transport — workers own their devices")
         self.transport = transport
         self.max_fetch_retries = max_fetch_retries
         self.slo_tiers = list(slo_tiers) if slo_tiers else None
@@ -339,7 +338,7 @@ class LutFleet:
                     store = os.path.join(self.store_root, rid)
                     os.makedirs(store, exist_ok=True)
                     reg = ModelRegistry(
-                        microbatch, deadline_s, device=device,
+                        microbatch, deadline_s, device=device, mesh=mesh,
                         engine_hook=lambda mid, batch, rid=rid:
                             self._engine_gate(rid),
                         slo_tiers=slo_tiers, work_stealing=work_stealing)

@@ -94,13 +94,22 @@ class ModelRegistry:
     model's tables live without dropping requests."""
 
     def __init__(self, microbatch: int = 256, deadline_s: float = 2e-3,
-                 *, device: DeviceLike = None,
+                 *, device: DeviceLike = None, mesh=None,
                  engine_hook: Optional[Callable] = None,
                  slo_tiers: Optional[List[SLOTier]] = None,
                  work_stealing: bool = False):
         self.microbatch = microbatch
         self.deadline_s = deadline_s
-        # every engine runs here: the CUDA card unless one is named
+        # every engine runs here: the CUDA card unless one is named; with
+        # a mesh (parallel.sharding.Mesh) each microbatch is split over
+        # its entries and the answers land on its first entry's device
+        self.mesh = mesh
+        if mesh is not None:
+            first = mesh.device_list[0]
+            if device is not None and resolve_device(device) != first:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"first entry {first}")
+            device = first
         self.device = resolve_device(device)
         # SLO-tiered scheduling: when tiers are declared (or stealing
         # is on) every model's batcher gets a ScoreboardScheduler —
@@ -143,7 +152,7 @@ class ModelRegistry:
         # the engine plans its own rows per block from the shared-memory
         # ledger; the microbatch size only sets the batch it is handed
         serve_fn = lg_ops.make_network_fn(tables, n_in0=n_feat,
-                                          device=device)
+                                          device=device, mesh=self.mesh)
         t0 = time.monotonic()
         # warm-up: builds the kernels on first use and launches them
         serve_fn(torch.zeros((self.microbatch, n_feat), dtype=torch.int32,

@@ -37,9 +37,12 @@ batch stream through the scoreboard scheduler.
     PYTHONPATH=src python -m repro_torch.launch.serve --lut --device cpu \\
         --artifact-dir /tmp/lut-artifacts                   # cold-load
 
-Without ``--device`` both modes run on the CUDA card.  Not ported yet:
-``--shards`` (a batch sharded over devices, ``ROADMAP.md`` Queue 1
-item 5).
+Without ``--device`` both modes run on the CUDA card.  ``--shards N``
+splits every LUT microbatch over a mesh of N devices
+(``parallel.sharding.serving_mesh``: the first N cards, or with
+``--device cpu`` the CPU as N entries, which
+``device.ensure_host_devices(N)`` must allow first), tables replicated
+on each, in every ``--lut`` mode.
 """
 from __future__ import annotations
 
@@ -243,9 +246,10 @@ class LutServeResult:
 def drive_lut_serving(source, spec, data, *, requests: int,
                       microbatch: int, deadline_ms: float, rate: float,
                       header: str, device: DeviceLike = None,
-                      origin: str = "") -> LutServeResult:
+                      origin: str = "", mesh=None) -> LutServeResult:
     """Register ``source`` (an Artifact or a table list) in a
-    ``ModelRegistry`` on ``device`` (which warms its engine), run the
+    ``ModelRegistry`` on ``device`` (which warms its engine), its
+    microbatches split over ``mesh`` when one is given, run the
     open-loop load through it, print the shared report."""
     from repro_torch.launch.batching import (latency_percentiles_ms,
                                              replay_open_loop)
@@ -254,7 +258,7 @@ def drive_lut_serving(source, spec, data, *, requests: int,
     fq = spec.layer_specs()[0].in_quant
     idx, codes = request_codes(fq, data, requests)
     with ModelRegistry(microbatch, deadline_ms / 1e3,
-                       device=device) as reg:
+                       device=device, mesh=mesh) as reg:
         entry = reg.register("lut", source)
         print(f"  {entry.plan.describe()}")
         t0 = time.monotonic()
@@ -291,7 +295,7 @@ def _save_versions(args, dev):
     return spec, data, paths
 
 
-def run_swap_demo(args, dev) -> None:
+def run_swap_demo(args, dev, mesh=None) -> None:
     """Compile two artifact versions, serve v1 through the multi-model
     registry under live Poisson load, hot-swap to v2 mid-stream; prints
     the dropped count, the swap blackout and the accuracy."""
@@ -304,7 +308,7 @@ def run_swap_demo(args, dev) -> None:
     idx, codes = request_codes(spec.layer_specs()[0].in_quant, data,
                                args.requests)
     with ModelRegistry(args.microbatch, args.deadline_ms / 1e3,
-                       device=dev) as reg:
+                       device=dev, mesh=mesh) as reg:
         reg.register("tiny-jsc", paths[0])
         handles: list = []
         t0 = time.monotonic()
@@ -319,7 +323,8 @@ def run_swap_demo(args, dev) -> None:
 
     failed = sum(1 for h in handles if h.failed)
     acc = lut_accuracy(handles, data, idx)
-    print(f"hot-swap demo: {len(handles)}/{args.requests} served, "
+    print(f"hot-swap demo (shards={args.shards or 1}): "
+          f"{len(handles)}/{args.requests} served, "
           f"{failed} failed, {args.requests - len(handles)} dropped")
     print(f"  swap v{rep.old_version}->v{rep.new_version}: warm "
           f"{rep.warm_s * 1e3:.1f} ms off-path, blackout "
@@ -345,7 +350,7 @@ def _fleet_artifact_path(args, spec, source, origin) -> str:
     return path
 
 
-def run_fleet_serving(args, dev) -> None:
+def run_fleet_serving(args, dev, mesh=None) -> None:
     """Serve the Poisson load through an N-replica fleet: the artifact
     distributed + hash-verified on every replica, requests routed
     least-outstanding, every response tagged with the serving artifact
@@ -361,7 +366,7 @@ def run_fleet_serving(args, dev) -> None:
     idx, codes = request_codes(spec.layer_specs()[0].in_quant, data,
                                args.requests)
     with LutFleet(args.replicas, args.microbatch, args.deadline_ms / 1e3,
-                  device=dev) as fleet:
+                  device=dev, mesh=mesh) as fleet:
         dist = fleet.distribute_artifact(path, "m")
         print(f"distributed to {sorted(dist)}: "
               f"{ {k: d.admitted for k, d in dist.items()} }")
@@ -373,6 +378,7 @@ def run_fleet_serving(args, dev) -> None:
     p50, p95, p99 = latency_percentiles_ms(handles)
     acc = lut_accuracy(handles, data, idx)
     print(f"lut-serve[fleet x{args.replicas}, {origin}] "
+          f"shards={args.shards or 1} "
           f"microbatch={args.microbatch} deadline={args.deadline_ms}ms "
           f"rate={args.rate:,.0f}/s:")
     print(f"  latency p50 {p50:.2f} ms / p95 {p95:.2f} ms / "
@@ -382,7 +388,7 @@ def run_fleet_serving(args, dev) -> None:
           f"{ {k: v['served'] for k, v in stats.items()} }")
 
 
-def run_fleet_swap_demo(args, dev) -> None:
+def run_fleet_swap_demo(args, dev, mesh=None) -> None:
     """Two artifact versions, an N-replica fleet under live Poisson
     load, and a two-phase coordinated swap mid-stream: prepare warms
     the new engine off-path on every replica, commit cuts them all
@@ -397,7 +403,7 @@ def run_fleet_swap_demo(args, dev) -> None:
     idx, codes = request_codes(spec.layer_specs()[0].in_quant, data,
                                args.requests)
     with LutFleet(replicas, args.microbatch, args.deadline_ms / 1e3,
-                  device=dev) as fleet:
+                  device=dev, mesh=mesh) as fleet:
         fleet.distribute_artifact(paths[0], "m")
         handles: list = []
         t0 = time.monotonic()
@@ -416,7 +422,8 @@ def run_fleet_swap_demo(args, dev) -> None:
     for h in handles:
         by_tag[h.version_tag[:12]] = by_tag.get(h.version_tag[:12], 0) + 1
     acc = lut_accuracy(handles, data, idx)
-    print(f"fleet swap demo (x{replicas} replicas): "
+    print(f"fleet swap demo (x{replicas} replicas, "
+          f"shards={args.shards or 1}): "
           f"{len(handles)}/{args.requests} served, {dropped} dropped")
     print(f"  prepare {rep.prepare_s * 1e3:.1f} ms off-path (all "
           f"replicas), commit window {rep.commit_window_s * 1e3:.2f} ms, "
@@ -430,7 +437,7 @@ def run_fleet_swap_demo(args, dev) -> None:
           f"accuracy (mixed stream) {acc:.4f}")
 
 
-def run_slo_serving(args, dev) -> None:
+def run_slo_serving(args, dev, mesh=None) -> None:
     """Two-tier SLO serving: a mixed interactive/batch Poisson stream
     through the scoreboard scheduler (EDF dispatch order with batch
     backfill, admission control shedding provably-late interactive
@@ -462,7 +469,7 @@ def run_slo_serving(args, dev) -> None:
     if args.replicas:
         path = _fleet_artifact_path(args, spec, source, origin)
         with LutFleet(args.replicas, args.microbatch,
-                      args.deadline_ms / 1e3, device=dev,
+                      args.deadline_ms / 1e3, device=dev, mesh=mesh,
                       slo_tiers=tiers, work_stealing=True) as fleet:
             fleet.distribute_artifact(path, "m")
             replay = replay_tiered_open_loop(
@@ -470,7 +477,7 @@ def run_slo_serving(args, dev) -> None:
         where = f"fleet x{args.replicas}"
     else:
         with ModelRegistry(args.microbatch, args.deadline_ms / 1e3,
-                           device=dev, slo_tiers=tiers,
+                           device=dev, mesh=mesh, slo_tiers=tiers,
                            work_stealing=True) as reg:
             reg.register("m", source)
             replay = replay_tiered_open_loop(
@@ -479,6 +486,7 @@ def run_slo_serving(args, dev) -> None:
 
     report = tier_report(replay)
     print(f"lut-serve[slo-tiers, {where}, {origin}] "
+          f"shards={args.shards or 1} "
           f"microbatch={args.microbatch} flush-deadline="
           f"{args.deadline_ms}ms rate={args.rate:,.0f}/s "
           f"interactive-slo={args.interactive_deadline_ms}ms:")
@@ -494,26 +502,36 @@ def run_slo_serving(args, dev) -> None:
     print(f"  sheds all typed, silent drops 0, hung handles {hung}")
 
 
+def lut_mesh(shards: int, dev: torch.device):
+    """``--shards``: None for 0, else ``serving_mesh(shards)`` over the
+    visible cards, or over ``host_devices()`` when ``dev`` is the CPU
+    (raises ValueError beyond what is visible)."""
+    if not shards:
+        return None
+    from repro_torch.device import host_devices
+    from repro_torch.parallel.sharding import serving_mesh
+    return serving_mesh(shards, devices=host_devices()
+                        if dev.type == "cpu" else None)
+
+
 def serve_lut(args) -> Optional[LutServeResult]:
     """The ``--lut`` mode.  Returns the main path's ``LutServeResult``
     (None for the demo and fleet modes, which only print)."""
-    if args.shards:
-        raise NotImplementedError(
-            "--shards is not ported: the batch-sharded engine "
-            "(lut_network_fused_sharded) waits on ROADMAP.md Queue 1 "
-            "item 5")
     dev = resolve_device(args.device)
+    mesh = lut_mesh(args.shards, dev)
+    if mesh is not None:
+        dev = mesh.device_list[0]
     if args.slo_tiers:
-        run_slo_serving(args, dev)
+        run_slo_serving(args, dev, mesh)
         return None
     if args.fleet_swap_demo:
-        run_fleet_swap_demo(args, dev)
+        run_fleet_swap_demo(args, dev, mesh)
         return None
     if args.swap_demo:
-        run_swap_demo(args, dev)
+        run_swap_demo(args, dev, mesh)
         return None
     if args.replicas:
-        run_fleet_serving(args, dev)
+        run_fleet_serving(args, dev, mesh)
         return None
 
     spec, source, data, origin = load_or_build_lut_model(
@@ -522,8 +540,9 @@ def serve_lut(args) -> Optional[LutServeResult]:
     return drive_lut_serving(
         source, spec, data, requests=args.requests,
         microbatch=args.microbatch, deadline_ms=args.deadline_ms,
-        rate=args.rate, device=dev, origin=origin,
+        rate=args.rate, device=dev, origin=origin, mesh=mesh,
         header=f"lut-serve[{origin}] device={dev} "
+               f"shards={args.shards or 1} "
                f"microbatch={args.microbatch} deadline={args.deadline_ms}ms "
                f"rate={args.rate:,.0f}/s:")
 
@@ -645,8 +664,9 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--microbatch", type=int, default=256)
     ap.add_argument("--deadline-ms", type=float, default=2.0)
     ap.add_argument("--shards", type=int, default=0,
-                    help="devices for batch-sharded serving (not ported "
-                         "yet; 0 = unsharded)")
+                    help="devices to split each LUT microbatch over "
+                         "(0 = unsharded); with --device cpu, CPU entries "
+                         "(repro_torch.device.ensure_host_devices)")
     ap.add_argument("--requests", type=int, default=2048)
     ap.add_argument("--rate", type=float, default=50_000.0)
     ap.add_argument("--smoke", action="store_true", default=True)

@@ -16,7 +16,8 @@ Every registered architecture trains, the encoder-decoder (whisper) on
 random frames and tokens drawn as the reference draws them; an MoE
 model's load-balancing term is printed as ``aux``.  Checkpoints are in
 the reference's layout: its ``restore_checkpoint`` reads them.  Not ported:
-sharding over a mesh (``ROADMAP.md``, Queue 1 item 6).
+``--mesh``, a model sharded over process groups (``ROADMAP.md``, Queue 1
+item 6, the LM's multi-rank half).
 """
 from __future__ import annotations
 

@@ -62,7 +62,7 @@ from repro_torch.models.layers import AttnSpec
 
 MIXERS = ("attn", "local", "rglru", "rwkv")
 CHANNELS = ("dense", "moe", "rwkv_cm")
-_UNPORTED = "see ROADMAP.md Queue 1 item 6, the multi-card work"
+_UNPORTED = "see ROADMAP.md Queue 1 item 6, the LM's multi-rank half"
 
 # LMConfig fields of the multi-card work, which is not ported, with the
 # only value the port takes

@@ -202,15 +202,17 @@ def test_fleet_needs_a_card_unless_told_and_has_no_mesh(monkeypatch,
                                                         tmp_path):
     """Replicas serve on the CUDA card unless the fleet names a device:
     without a card and without a name, building the fleet raises (no
-    silent CPU fallback) and leaves no store behind.  A sharded fleet
-    is not ported."""
+    silent CPU fallback) and leaves no store behind.  A mesh cannot
+    cross the process transport (the reference's ValueError), and
+    leaves no store behind either."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LutFleet(2)
     assert not list(tmp_path.iterdir())
-    with pytest.raises(NotImplementedError, match="sharded"):
-        LutFleet(1, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="process transport"):
+        LutFleet(1, device="cpu", mesh=object(), transport="process")
+    assert not list(tmp_path.iterdir())
 
 
 # ---------------------------------------------------------------------------

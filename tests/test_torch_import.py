@@ -21,8 +21,14 @@ bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "repro")
              or m.startswith(("jax.", "jaxlib.", "repro.")))
 print(len(names), bad)
+print(" ".join(names))
 sys.exit(1 if bad else 0)
 """
+
+# modules the probe must reach by name (the mesh modules among them)
+NAMED = ("repro_torch.parallel", "repro_torch.parallel.sharding",
+         "repro_torch.launch.mesh", "repro_torch.device",
+         "repro_torch.kernels.lut_gather.ops", "repro_torch.data.loader")
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
@@ -31,7 +37,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 65, proc.stdout
+    assert n_modules >= 67, proc.stdout
+    names = set(proc.stdout.splitlines()[1].split())
+    assert set(NAMED) <= names, sorted(set(NAMED) - names)
 
 
 WORKER_PROBE = """

@@ -551,3 +551,86 @@ def test_wkv6_kernel_finite_at_the_clamp(cuda, K, dtype):
     _wkv_check(cuda, 2, 512, 3, K, dtype, with_s0=True, clamp=True, seed=K)
     _wkv_check(cuda, 2, 512, 3, K, dtype, with_s0=False, clamp=True,
                seed=K + 1)
+
+
+# ---------------------------------------------------------------------------
+# kernels on a second card
+# ---------------------------------------------------------------------------
+
+ROOT = GOLDEN.parent.parent
+
+TWO_CARD_PROBE = """
+import sys
+sys.path[:0] = [sys.argv[1] + "/src", sys.argv[1] + "/tests", sys.argv[1]]
+import test_torch_kernels_gpu as T
+T.two_card_kernels(int(sys.argv[2]), int(sys.argv[3]))
+print("ok")
+"""
+
+
+def two_card_kernels(first: int, second: int) -> None:
+    """Kernels 1-5 on card ``first``, then the same calls on card
+    ``second``, each against its plain version on that card (LUT
+    kernels bit for bit, kernel 4 within 1e-5, WKV6 within 2e-4 of the
+    output scale).  Kernels 1-3 run at geometries whose dynamic shared
+    memory exceeds 48 KB, which a launch may take only after its device
+    allowed it (``cudaFuncSetAttribute`` acts on the current device)."""
+    import chip_smoke
+    from repro_torch.configs import paper_models as PM
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    from repro_torch.kernels.lut_gather import ops as lops
+    from repro_torch.kernels.lut_gather import ref as lref
+    from repro_torch.kernels.masked_matmul import masked_matmul as mm
+    from repro_torch.kernels.masked_matmul import ref as mref
+    from repro_torch.kernels.wkv6 import ops as wops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = PM.hdr_add2()
+    for index in (first, second):
+        dev = torch.device("cuda", index)
+        tables = chip_smoke.random_tables(spec, 11, dev)
+        args = lops._layer_args(tables, spec.in_features, check_conn=True)
+        net = K.FusedNet(args)
+        rng = np.random.default_rng(index)
+        for B, call in (
+                (4096, lambda c: K.lut_network_fused(c, net, rows=32)),
+                (4096, lambda c: K.lut_network_fused(c, net, rows=16,
+                                                     pipeline=True)),
+                (17000, lambda c: K.lut_layers(c, net))):
+            codes = torch.from_numpy(rng.integers(
+                0, 4, (B, spec.in_features)).astype(np.int32)).to(dev)
+            want = lref.lut_network(codes, [a.plain() for a in args])
+            assert torch.equal(call(codes), want), (index, B)
+        g = torch.Generator(device=dev).manual_seed(index)
+        x = torch.randn((16384, 784), generator=g, device=dev)
+        conn = torch.randint(0, 784, (256, 6), generator=g, device=dev,
+                             dtype=torch.int32)
+        w = torch.randn((256, 6), generator=g, device=dev)
+        torch.testing.assert_close(mm.masked_matmul(x, conn, w),
+                                   mref.masked_matmul(x, conn, w),
+                                   rtol=1e-5, atol=1e-5)
+        r, k, v, logw, u, s0 = _wkv_inputs(2, 77, 3, 64, torch.bfloat16,
+                                           dev, seed=index)
+        for got, want in zip(wops.wkv6(r, k, v, logw, u, s0),
+                             wops.wkv6_reference(r, k, v, logw, u, s0)):
+            err = (got - want).abs().max().item()
+            assert err <= 2e-4 * max(1.0, want.abs().max().item()), err
+        torch.cuda.synchronize(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [(0, 1), (1, 0)], ids=["0-1", "1-0"])
+def test_kernels_on_a_second_card(order):
+    """Each order in a fresh process, so nothing was set on either card
+    before: the attributes the CUDA sources remember are remembered per
+    device, and a launch on the second card is not refused."""
+    import subprocess
+    import sys
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the kernels' per-device "
+                    "launch attributes are checked on a second card")
+    proc = subprocess.run(
+        [sys.executable, "-c", TWO_CARD_PROBE, str(ROOT), *map(str, order)],
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0 and "ok" in proc.stdout, \
+        proc.stdout[-2000:] + proc.stderr[-4000:]

@@ -601,15 +601,23 @@ def test_example_mnist_sparselut(capsys):
     assert "SparseLUT connectivity acc" in capsys.readouterr().out
 
 
-def test_example_lut_serve(tmp_path):
+def test_example_lut_serve(tmp_path, monkeypatch):
     ex = _example("torch_lut_serve")
     res = ex.main(["--train-steps", "2", "--requests", "64", "--device",
                    "cpu", "--artifact-dir", str(tmp_path)])
     for mid in ("jsc-base", "jsc-lite"):
         assert res[mid]["served"] == 64
         assert res[mid]["failed"] == res[mid]["dropped"] == 0
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ex.main(["--shards", "2", "--device", "cpu"])
+    # --shards N splits each microbatch over N CPU entries, which the
+    # host must allow first (repro_torch.device.ensure_host_devices)
+    monkeypatch.setenv("REPRO_TORCH_HOST_DEVICES", "2")
+    res = ex.main(["--train-steps", "2", "--requests", "64", "--device",
+                   "cpu", "--artifact-dir", str(tmp_path), "--shards", "2"])
+    for mid in ("jsc-base", "jsc-lite"):
+        assert res[mid]["served"] == 64
+        assert res[mid]["failed"] == res[mid]["dropped"] == 0
+    with pytest.raises(ValueError, match="3 devices requested"):
+        ex.main(["--shards", "3", "--device", "cpu"])
 
 
 def test_train_launcher_resumes(tmp_path, capsys):

@@ -509,7 +509,9 @@ def test_population_member_equals_lone_search(jsc):
     # ties go to the lowest index
     assert TLD.select_best_masks(masks, torch.tensor(
         [0.5, 0.7, 0.7, 0.1]))[1] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh is a parallel.sharding.Mesh (tests/test_torch_sharded.py
+    # runs the sharded search)
+    with pytest.raises(TypeError, match="Mesh"):
         TLD.search_connectivity_population(gens, spec, iter(()),
                                            n_steps=1, mesh=object())
 
