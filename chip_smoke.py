@@ -56,8 +56,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              sharded output equal to the unsharded kernel-1 output and
              the plain version bit for bit; the four-shard mesh against
              the unsharded call at B=4096 and 16384 (CUDA events and
-             queued); ``tune_block_b`` on both networks (each cap's time,
-             every cap's output equal); ``ModelRegistry(mesh=)`` 4000
+             queued); ``tune_block_b`` on both networks (one time a
+             launch, the largest level cap picked, each cap's time, every
+             cap's output equal); ``ModelRegistry(mesh=)`` 4000
              requests at 4000/s (0 failed, bit for bit, p50/p99 beside
              [serve]'s), the pipelined and per-layer plans through
              ``make_network_fn(mesh=)`` (one launch a shard); ``serve
@@ -192,6 +193,38 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              reference's smoke configs of granite-moe, recurrentgemma and
              whisper (``--seq 32``): finite loss, checkpoints, MoE aux.
              Each of the three phases prints its peak device memory.
+19. mesh_lm — the LM's multi-rank half: granite-moe-1b-a400m at full
+             width (bf16) with ``moe_ep`` on a 2x2 mesh of ``[cuda:0] * 4``
+             (axes data x model; and on a mesh of every card when there are
+             two or more): a B=4 x 512 prefill and 32 greedy decode steps
+             through the serve loop (finite logits; ms a prefill, ms a
+             decode step and peak memory beside the unsharded run's);
+             two EP prefills, ``moe_ep_fsdp`` against ``moe_ep`` and
+             ``seq_parallel`` against the plain model, each bit for bit;
+             the bf16 EP prefill at capacity factor 1.25 (each data slice
+             its own capacity, so each drops), every block's EP channel
+             against a float32 loop run on each data slice's tokens with
+             the same routes: the same drops, outputs within the stated
+             tolerance; in float32 with nothing dropped, a decode step
+             block by block and a 64-token prefill + 16 decode steps over
+             the whole model through ``moe_apply_ep`` against
+             ``moe_apply``; 5 float32 train steps of all 24 layers
+             through the ``Trainer`` on the mesh against 5 plain steps
+             (losses), then ``Trainer.try_resume(shardings=)`` with
+             ``lm_rules(fsdp=True)`` shardings on the mesh: the whole
+             state equal to the saved one, and every shard equal to its
+             slice of the saved leaf.
+20. dryrun — the dry-run cost pass (``launch/dryrun.py``): every
+             (arch x shape) cell of the registry on the 256-chip
+             ``single`` and 512-chip ``multi`` placeholder meshes, at full
+             size, one process a cell, as many at once as the machine has
+             cores: skipped cells with the registry's reasons, every other
+             cell ``ok`` with its chip count, every roofline term >= 0, a
+             dominant term, a per-device peak > 0 and a positive, finite
+             ``useful_ratio``; one ``summarize_cell`` line a cell.  Where
+             the batch splits over the data axes, a chip's FLOPs on 512
+             chips are half its FLOPs on 256, and a train cell's bytes
+             at most DRYRUN_TRAIN_BYTES_SPLIT_MAX of them.
 
 ``python3 chip_smoke.py --phases lm_attn,lm_train`` runs only the named
 phases (after ``device``) and prints no result line.
@@ -1007,7 +1040,9 @@ def phase_shards(dev, results):
     unsharded kernel-1 output and to the plain version bit for bit, on
     both meshes.  (2) HDR-Add2 int4 at B=4096 and 16384, the four-shard
     mesh against the unsharded call (CUDA events, and queued).  (3)
-    ``tune_block_b`` on both networks: each cap's time, the cap picked,
+    ``tune_block_b`` on both networks: one time a launch (caps of one
+    ``fused_geometry`` at the probe share it), the cap picked the
+    largest among the launches level with the fastest, each cap's time,
     every cap's output equal to the plain version.  (4) The registry on
     the four-shard mesh: 4000 requests at 4000/s, 0 failed, every answer
     equal to the plain forward; then the pipelined and per-layer plans
@@ -1116,10 +1151,28 @@ def phase_shards(dev, results):
             check(torch.equal(K.lut_network_fused(codes, net, max_rows=cap),
                               plain), f"[shards] tune {spec_t.name}: cap "
                   f"{cap} differs from plain")
-        tuned[model] = dict(best=best, seconds=timings)
-        log(f"[shards] tune_block_b {spec_t.name} int4 at B=2048: picks "
-            f"cap {best}; ms a call by cap " + ", ".join(
-                f"{c}: {t * 1e3:.4f}" for c, t in sorted(timings.items()))
+        # one time a launch (caps of one fused_geometry share it), and
+        # the largest cap among the launches level with the fastest
+        widths = [t.conn.shape[0] for t in tables]
+        launches = {}
+        for cap in timings:
+            launches.setdefault(K.fused_geometry(
+                2048, net.n_sms, spec_t.in_features, widths, False,
+                max_rows=cap), []).append(cap)
+        level = [c for c, t in timings.items()
+                 if t <= min(timings.values()) * (1 + ops.TUNE_LEVEL_MARGIN)]
+        check(all(len({timings[c] for c in caps}) == 1
+                  for caps in launches.values()) and best == max(level),
+              f"[shards] tune {spec_t.name}: not one time a launch, or "
+              f"cap {best} is not the largest level cap {max(level)}")
+        tuned[model] = dict(best=best, seconds=timings,
+                            launches=sorted(launches.values()))
+        log(f"[shards] tune_block_b {spec_t.name} int4 at B=2048: "
+            f"{len(launches)} launches {sorted(launches.values())} timed "
+            f"once each; picks cap {best}, the largest within "
+            f"{ops.TUNE_LEVEL_MARGIN:.0%} of the fastest; ms a call by cap "
+            + ", ".join(f"{c}: {t * 1e3:.4f}"
+                        for c, t in sorted(timings.items()))
             + "; every cap == plain")
 
     # (4)-(6): the serving entry points on the four-shard mesh
@@ -3138,22 +3191,27 @@ class _Routes:
         return torch.cat([e, k.long()], dim=-1)
 
 
-def moe_loop_f32(p, s, x, no_drop=False):
+def moe_loop_f32(p, s, x, no_drop=False, route=None):
     """The MoE block as a plain float32 loop over experts, independent of
-    ``moe_apply``: route by ``torch.topk`` of the float32 router, then
-    for each expert its tokens in token order, the first ``cap`` of them
-    kept (``moe_capacity``), through the expert's SwiGLU with its weights
-    upcast (only the experts some token chose).  -> (y float32 (B, S, D),
-    kept (T, k) in top-k order, eids (T, k))."""
+    ``moe_apply``: route by ``torch.topk`` of the float32 router (or take
+    ``route``, (gates, eids) each (T, k)), then for each expert its
+    tokens in token order, the first ``cap`` of them kept
+    (``moe_capacity`` of x's tokens), through the expert's SwiGLU with
+    its weights upcast (only the experts some token chose).  -> (y
+    float32 (B, S, D), kept (T, k) in top-k order, eids (T, k))."""
     import torch
     import torch.nn.functional as F
     from repro_torch.models import layers as NN
     B, S, D = x.shape
     T = B * S
     xt = x.reshape(T, D).float()
-    probs = torch.softmax(xt @ p["router"]["w"], dim=-1)
-    gates, eids = torch.topk(probs, s.top_k, dim=-1)
-    gates = gates / gates.sum(-1, keepdim=True)
+    if route is None:
+        probs = torch.softmax(xt @ p["router"]["w"], dim=-1)
+        gates, eids = torch.topk(probs, s.top_k, dim=-1)
+        gates = gates / gates.sum(-1, keepdim=True)
+    else:
+        gates, eids = (t.reshape(T, s.top_k) for t in route)
+        gates = gates.float()
     cap = NN.moe_capacity(s, T, no_drop)
     kept = torch.zeros_like(eids, dtype=torch.bool)
     y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
@@ -3709,6 +3767,519 @@ def phase_encdec(dev, results, smoke=False, B=4, GEN=32, train_steps=20):
     _phase_end(tag, out, results, t_phase)
 
 
+# [mesh_lm] tolerances, each relative to the largest magnitude of what it
+# is held to (``_rel_err``):
+# - float32, the expert-parallel dispatch against ``moe_apply`` on the
+#   same weights (no drops on either side): the same products, each
+#   token's expert outputs summed by column partials rather than in one
+#   run, so the sums differ in order only (as LM_FAMILY_F32_TOL), block
+#   by block and over the whole model on the rows routed alike;
+MESH_LM_F32_TOL = 1e-4
+# - bf16 at the prefill's capacity factor, each block's EP channel
+#   against ``moe_loop_f32`` on each data slice's tokens with the same
+#   routes and that slice's capacity: the bf16 roundings of one MoE
+#   channel, as LM_MOE_EXPERT_TOL (the drops must agree exactly);
+MESH_LM_EP_BF16_TOL = LM_MOE_EXPERT_TOL
+# - float32 train losses, 5 steps of the EP model against the plain one
+#   from one start and batches (no drops): AdamW's first steps move an
+#   element whose gradient is float noise by a noise-set share of lr, so
+#   the losses part by more than one step's rounding.
+MESH_LM_TRAIN_TOL = 1e-4
+
+
+class _RouteSets:
+    """Records each ``moe_route`` call's top-k expert sets while entered
+    (sorted ids, (T, k)): the dispatch-independent route of a token."""
+
+    def __init__(self, NN):
+        self.NN, self.calls = NN, []
+
+    def __enter__(self):
+        import torch
+        self._route = self.NN.moe_route
+
+        def route(p, s, xt):
+            out = self._route(p, s, xt)
+            self.calls.append(torch.sort(out[1], dim=-1).values)
+            return out
+
+        self.NN.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.NN.moe_route = self._route
+
+
+class _EPCalls:
+    """Records each ``moe_apply_ep`` call while entered: its weights,
+    spec, input, output, route (``moe_route``'s gates and eids on the
+    whole batch) and, for each (data slice, column) entry in order, the
+    kept flags (``keep & mine``, (T_loc, k) in top-k order) it hands
+    the combine."""
+
+    def __init__(self, NN):
+        self.NN, self.calls = NN, []
+
+    def __enter__(self):
+        NN = self.NN
+        self._ep, self._route, self._experts = (NN.moe_apply_ep,
+                                                NN.moe_route, NN._experts)
+
+        def ep(p, s, x, mesh, **kw):
+            call = dict(p=p, s=s, x=x, keeps=[], mesh=mesh)
+            self.calls.append(call)
+            call["y"], aux = self._ep(p, s, x, mesh, **kw)
+            return call["y"], aux
+
+        def route(p, s, xt):
+            out = self._route(p, s, xt)
+            if self.calls and "route" not in self.calls[-1]:
+                self.calls[-1]["route"] = out[:2]
+            return out
+
+        def experts(*args):
+            if self.calls:
+                self.calls[-1]["keeps"].append(args[-1])
+            return self._experts(*args)
+
+        NN.moe_apply_ep, NN.moe_route, NN._experts = ep, route, experts
+        return self
+
+    def __exit__(self, *exc):
+        NN = self.NN
+        NN.moe_apply_ep, NN.moe_route, NN._experts = (self._ep, self._route,
+                                                      self._experts)
+
+
+def _ep_vs_slice_loops(call):
+    """One recorded ``moe_apply_ep`` call against ``moe_loop_f32`` run on
+    each data slice's tokens separately, with the call's route: ->
+    (relative error, kept flags equal, dropped, assignments)."""
+    import torch
+    mesh, x, s = call["mesh"], call["x"], call["s"]
+    n_dp, ep = mesh.shape["data"], mesh.shape["model"]
+    T, D = x.shape[0] * x.shape[1], x.shape[2]
+    T_loc = T // n_dp
+    gates, eids = call["route"]
+    ys, kept_ref, kept_ep = [], [], []
+    for i in range(n_dp):
+        rows = slice(i * T_loc, (i + 1) * T_loc)
+        y32, kept, _ = moe_loop_f32(call["p"], s,
+                                    x.reshape(T, D)[rows][None],
+                                    route=(gates[rows], eids[rows]))
+        ys.append(y32.reshape(T_loc, D))
+        kept_ref.append(kept)
+        keep = call["keeps"][i * ep]
+        for c in range(1, ep):
+            keep = keep | call["keeps"][i * ep + c]
+        kept_ep.append(keep)
+    kept_ref, kept_ep = torch.cat(kept_ref), torch.cat(kept_ep)
+    rel = _rel_err(call["y"].reshape(T, D), torch.cat(ys))[1]
+    return (rel, torch.equal(kept_ep, kept_ref), int((~kept_ref).sum()),
+            kept_ref.numel())
+
+
+def _mesh_of(devices, shape):
+    from repro_torch.parallel.sharding import Mesh
+    return Mesh(np.array(devices, dtype=object).reshape(shape),
+                ("data", "model"))
+
+
+def _paired(a, b):
+    """(leaf of a, leaf of b) over a tree of dicts, lists and named
+    tuples, ``b`` shaped as ``a`` (its leaves may be ``ShardedTensor``s,
+    which are dataclasses)."""
+    if isinstance(a, dict):
+        for k in a:
+            yield from _paired(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        for x, y in zip(a, b):
+            yield from _paired(x, y)
+    else:
+        yield a, b
+
+
+def _kernel_counts():
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    from repro_torch.kernels.masked_matmul import masked_matmul as MM
+    from repro_torch.kernels.wkv6 import wkv6 as W
+    return {**K.launch_counts(), **MM.launch_counts(), **W.launch_counts()}
+
+
+def _reset_kernel_counts():
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    from repro_torch.kernels.masked_matmul import masked_matmul as MM
+    from repro_torch.kernels.wkv6 import wkv6 as W
+    for lib in (K, MM, W):
+        lib.reset_launch_counts()
+
+
+def phase_mesh_lm(dev, results, smoke=False, B=4, P=512, GEN=32, FP=64,
+                  FGEN=16, train_B=4, train_S=128, steps=5):
+    """granite-moe-1b-a400m at full width with the expert-parallel
+    dispatch (``moe_ep``) on a 2x2 mesh of four entries of the card
+    (``smoke`` rehearses it at the smoke config).  Serving runs in
+    bf16; the comparisons with ``moe_apply`` over the whole model and
+    the training run in float32 with nothing dropped, so that the EP
+    dispatch, which only reorders sums, can be held to float32's
+    rounding (MESH_LM_F32_TOL, MESH_LM_TRAIN_TOL): all 24 layers, whose
+    float32 state (parameters and two AdamW moments, 16 GB) fits the
+    card twice over beside a resumed copy."""
+    import contextlib
+    import dataclasses
+
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as NN
+    from repro_torch.models import lm as LM
+    from repro_torch.models import registry as R
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    tag = "mesh_lm"
+    t_phase = t0 = _phase_start(tag)
+    cfg, params = serve.init_lm("granite-moe-1b-a400m", smoke=smoke,
+                                device=dev, seed=0)
+    torch.cuda.synchronize()
+    check(smoke or (cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.top_k,
+                    cfg.dtype) == (24, 1024, 32, 8, torch.bfloat16),
+          f"[{tag}] not the full-width config: {cfg}")
+    n_params = _log_config(tag, cfg, params, time.perf_counter() - t0)
+    mesh = _mesh_of([dev] * 4, (2, 2))
+    ep = dataclasses.replace(cfg, moe_ep=True)
+    log(f"[{tag}] mesh {mesh}: tokens split over data (2), experts over "
+        f"model (2): {cfg.n_experts // 2} an entry")
+    prompt = serve.make_prompt(cfg, B, P, seed=0, device=dev)
+    serve.serve_lm(params, cfg, prompt[:, :64], gen=2)      # warm-up
+    with mesh:
+        serve.serve_lm(params, ep, prompt[:, :64], gen=2)
+    out = dict(params=n_params, batch=B, prompt_len=P, gen=GEN)
+
+    # ---- the main path: the serve loop with moe_ep on the mesh, beside
+    # the unsharded run; counts zeroed just before, read just after
+    runs = {}
+    _reset_kernel_counts()
+    for name, c, ctx in (("unsharded", cfg, contextlib.nullcontext()),
+                         ("EP on the 2x2 mesh", ep, mesh)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with ctx:
+            res = _serve_and_check(tag, serve, params, c, prompt, GEN)
+        torch.cuda.synchronize()
+        runs[name] = dict(prefill_ms=res.prefill_s * 1e3,
+                          decode_ms_per_step=res.decode_s / GEN * 1e3,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    counts = _kernel_counts()
+    # ----
+    log(f"[{tag}] " + "; ".join(
+        f"{k}: prefill {v['prefill_ms']:.2f} ms, decode "
+        f"{v['decode_ms_per_step']:.3f} ms a step, peak memory "
+        f"{v['peak_gb']:.2f} GB" for k, v in runs.items())
+        + f"; kernel launches over both runs {counts} (this path runs "
+        f"none of the five)")
+    out.update(runs=runs, kernel_launches=counts)
+
+    # (1) the same bits: two EP prefills, EP with its weights gathered
+    # over data (moe_ep_fsdp), and seq_parallel against the plain model
+    def prefill(c, ctx):
+        with ctx:
+            return R.make_prefill_step(c, P + GEN)(params, prompt)
+    l1, c1 = prefill(ep, mesh)
+    l2, c2 = prefill(ep, mesh)
+    same = torch.equal(l1, l2) and all(
+        torch.equal(a, b) for a, b in zip(_leaves(c1), _leaves(c2)))
+    lf, _ = prefill(dataclasses.replace(ep, moe_ep_fsdp=True), mesh)
+    lsp, _ = prefill(dataclasses.replace(cfg, seq_parallel=True), mesh)
+    lplain, _ = prefill(cfg, contextlib.nullcontext())
+    log(f"[{tag}] bit for bit: two EP prefills (logits and caches) "
+        f"{same}; moe_ep_fsdp == moe_ep {torch.equal(lf, l1)}; "
+        f"seq_parallel == plain {torch.equal(lsp, lplain)}; EP vs "
+        f"moe_apply at capacity {cfg.moe_capacity_factor} (each data "
+        f"slice's capacity): {torch.equal(l1, lplain)}")
+    check(same, f"[{tag}] two EP prefills differ")
+    check(torch.equal(lf, l1), f"[{tag}] moe_ep_fsdp differs from moe_ep")
+    check(torch.equal(lsp, lplain), f"[{tag}] seq_parallel changes values")
+    del l1, l2, c1, c2, lf, lsp, lplain
+
+    # (1b) the served setting itself, bf16 at capacity factor
+    # cfg.moe_capacity_factor (each data slice its own capacity, so each
+    # drops): every block's EP channel in the prefill against
+    # moe_loop_f32 run on each data slice's tokens separately with the
+    # same routes -- the same drops, and the outputs within the tolerance
+    with _EPCalls(NN) as rec:
+        prefill(ep, mesh)
+    check(len(rec.calls) == cfg.n_layers and all(
+        "route" in c and len(c["keeps"]) == mesh.size for c in rec.calls),
+        f"[{tag}] the EP prefill did not run moe_apply_ep in every block")
+    ep_rel, ep_same, ep_drop, ep_assign = 0.0, True, 0, 0
+    for call in rec.calls:
+        rel, same_keep, dropped, n_assign = _ep_vs_slice_loops(call)
+        ep_rel, ep_same = max(ep_rel, rel), ep_same and same_keep
+        ep_drop, ep_assign = ep_drop + dropped, ep_assign + n_assign
+    del rec
+    log(f"[{tag}] bf16 EP prefill at capacity factor "
+        f"{cfg.moe_capacity_factor} (capacity "
+        f"{NN.moe_capacity(cfg.moe_spec(), B * P // 2)} a slice of "
+        f"{B * P // 2} tokens), {cfg.n_layers} blocks against a float32 "
+        f"loop on each data slice with the same routes: {ep_drop} of "
+        f"{ep_assign} assignments dropped, the same drops: {ep_same}; max "
+        f"error relative to scale {ep_rel:.3e} (tolerance "
+        f"{MESH_LM_EP_BF16_TOL})")
+    check(ep_same, f"[{tag}] EP drops otherwise than each slice's loop")
+    check(ep_drop > 0, f"[{tag}] the capacity check dropped nothing")
+    check(ep_rel <= MESH_LM_EP_BF16_TOL,
+          f"[{tag}] the bf16 EP channel parts from each slice's loop")
+    out.update(ep_bf16_rel=ep_rel, ep_bf16_dropped=ep_drop,
+               ep_bf16_assignments=ep_assign)
+
+    # (2) float32, nothing dropped (capacity factor 16): decode through
+    # moe_apply_ep against moe_apply, block by block on the same inputs,
+    # then over the whole model (a prefill and decode steps)
+    p32 = _cast_params(params, torch.float32)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32,
+                              moe_capacity_factor=16.0)
+    e32 = dataclasses.replace(c32, moe_ep=True)
+    toks = serve.make_prompt(cfg, B, FP + FGEN, seed=2, device=dev)
+    _, cache = LM.prefill(p32, c32, toks[:, :FP], FP + FGEN)
+    x = LM._embed(c32, p32, toks[:, FP:FP + 1])
+    pos = torch.full((1,), FP, dtype=torch.long, device=dev)
+    worst = 0.0
+    for kind, bp, bc in zip(c32.kinds, p32["blocks"], cache["blocks"]):
+        y, _, _ = LM.block_apply(c32, kind, bp, x, pos,
+                                 {k: v.clone() for k, v in bc.items()})
+        with mesh:
+            y_ep, _, _ = LM.block_apply(e32, kind, bp, x, pos,
+                                        {k: v.clone() for k, v in bc.items()})
+        worst = max(worst, _rel_err(y_ep, y)[1])
+        x = y
+    log(f"[{tag}] float32 decode step, EP vs moe_apply block by block on "
+        f"the same inputs: max error relative to scale {worst:.3e} "
+        f"(tolerance {MESH_LM_F32_TOL})")
+    check(worst <= MESH_LM_F32_TOL, f"[{tag}] an EP block parts from "
+          f"moe_apply in float32")
+    with _RouteSets(NN) as r_plain:
+        seq = _whole_model(R, c32, p32, toks[:, :FP], toks[:, FP:])
+    with mesh, _RouteSets(NN) as r_ep:
+        seq_ep = _whole_model(R, e32, p32, toks[:, :FP], toks[:, FP:])
+    alike = torch.ones(B, dtype=torch.bool, device=dev)
+    for a, b in zip(r_plain.calls, r_ep.calls):
+        alike &= (a == b).all(-1).reshape(B, -1).all(-1)
+    rows = alike.nonzero().flatten()
+    whole = max(_rel_err(a[rows], b[rows])[1] for a, b in zip(seq_ep, seq))
+    log(f"[{tag}] float32 {FP}-token prefill + {FGEN} decode steps, EP vs "
+        f"moe_apply over the whole model: {len(rows)} of {B} rows routed "
+        f"alike in every layer; their logits' max error relative to scale "
+        f"{whole:.3e} (tolerance {MESH_LM_F32_TOL})")
+    check(len(rows) >= B // 2, f"[{tag}] float32 routes part on most rows")
+    check(whole <= MESH_LM_F32_TOL, f"[{tag}] the EP model parts from "
+          f"moe_apply in float32")
+    out.update(f32_block_rel=worst, f32_whole_rel=whole,
+               f32_rows_alike=len(rows))
+    del p32, cache, seq, seq_ep
+    torch.cuda.empty_cache()
+
+    # (3) training: granite at full width (every layer), float32,
+    # nothing dropped; 5 steps of the EP model through the Trainer on
+    # the mesh against 5 plain steps from the same start and batches;
+    # the checkpoint, resumed with lm_rules (FSDP) shardings
+    init_state, plain_step = LM.make_train_step(c32, R._optimizer(c32),
+                                                remat=False)
+    _, ep_step = LM.make_train_step(e32, R._optimizer(e32), remat=False)
+    start = init_state(torch.Generator(device=dev).manual_seed(3), dev)
+    rng = np.random.default_rng(4)
+    batches = []
+    for _ in range(steps):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab, (
+            train_B, train_S + 1))).to(dev)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    s, plain = start, []
+    t0 = time.perf_counter()
+    for b in batches:
+        s, m = plain_step(s, b)
+        plain.append(float(m["loss"]))
+    plain_s = time.perf_counter() - t0
+    del s
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-lm-") as d:
+        tr = Trainer(TrainerConfig(d, ckpt_every=steps, keep=1), ep_step,
+                     start, layout=LM.checkpoint_layout(e32))
+        t0 = time.perf_counter()
+        with mesh:
+            tr.run(iter(batches), steps, log_every=1)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        del start
+        losses = [h["loss"] for h in tr.history]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+        log(f"[{tag}] train, {cfg.n_layers} layers at full width, float32, "
+            f"B={train_B} x {train_S}: {steps} EP steps through the Trainer "
+            f"on the mesh ({train_s / steps * 1e3:.1f} ms a step, the "
+            f"checkpoint included; plain {plain_s / steps * 1e3:.1f} ms) "
+            f"losses {[f'{v:.6f}' for v in losses]} vs plain "
+            f"{[f'{v:.6f}' for v in plain]}: max relative difference "
+            f"{rel:.3e} (tolerance {MESH_LM_TRAIN_TOL})")
+        check(len(losses) == steps and rel <= MESH_LM_TRAIN_TOL,
+              f"[{tag}] EP training parts from plain training")
+        shardings = SH.make_shardings(
+            {"state": tr.state, "step": torch.zeros(())}, mesh,
+            SH.lm_rules(fsdp=True, tied_embed=c32.tie_embeddings))
+        tr2 = Trainer(TrainerConfig(d), ep_step, tr.state,
+                      layout=LM.checkpoint_layout(e32))
+        t0 = time.perf_counter()
+        ok = tr2.try_resume(shardings=shardings) and tr2.step == steps
+        resume_s = time.perf_counter() - t0
+        ok &= all(torch.equal(a, b) for a, b in _paired(tr.state, tr2.state))
+        n_leaves = n_shards = n_split = 0
+        for want, got in _paired(tr.state, tr2.sharded_state):
+            n_leaves += 1
+            n_split += any(e is not None for e in got.sharding.spec)
+            for shard in got.addressable_shards:
+                n_shards += 1
+                ok &= (shard.data.device == dev
+                       and torch.equal(shard.data, want[shard.index]))
+        log(f"[{tag}] checkpoint at step {steps}, try_resume(shardings=) "
+            f"with lm_rules(fsdp=True) on the mesh ({resume_s:.1f} s): the "
+            f"whole state and {n_leaves} laid-out leaves ({n_split} "
+            f"split), {n_shards} shards, each equal to its slice of the "
+            f"saved leaf: {ok}")
+        check(ok, f"[{tag}] a resumed shard differs from the saved leaf")
+    out.update(train_layers=cfg.n_layers, train_losses=losses,
+               plain_losses=plain, train_rel=rel,
+               train_ms_per_step=train_s / steps * 1e3,
+               plain_ms_per_step=plain_s / steps * 1e3, resume_s=resume_s,
+               resumed_leaves=n_leaves, resumed_shards=n_shards)
+    del tr, tr2
+    torch.cuda.empty_cache()
+
+    # (4) every card, when there are two or more
+    n = torch.cuda.device_count()
+    if n >= 2 and cfg.n_experts % n == 0:
+        cards = _mesh_of([torch.device("cuda", i) for i in range(n)],
+                         (1, n))
+        with cards:
+            res = _serve_and_check(tag, serve, params, ep, prompt, GEN)
+        out["cards"] = dict(prefill_ms=res.prefill_s * 1e3,
+                            decode_ms_per_step=res.decode_s / GEN * 1e3)
+    else:
+        log(f"[{tag}] {n} card: no mesh over several cards")
+    del params
+    _phase_end(tag, out, results, t_phase)
+
+
+# [dryrun]: the most a chip's share of a cell's counted work on the
+# 512-chip mesh may be of its share on 256 chips, where the batch splits
+# over the data axes (which then double):
+# - FLOPs: every matrix product has an operand split with the batch, so
+#   they halve (0.5000 in every full-size cell counted on a CPU);
+DRYRUN_FLOPS_SPLIT_MAX = 0.505
+# - a train step's bytes: its activations and their gradients halve, the
+#   weights' own work (replicated over the data axes) does not and is a
+#   few percent (0.5003-0.5161 counted on a CPU).  Prefill and decode
+#   bytes are printed, not bounded: their work without a batch dim
+#   (attention masks, recurrentgemma's weight upcasts each step) is
+#   replicated over the data axes and weighs up to a third of a step.
+DRYRUN_TRAIN_BYTES_SPLIT_MAX = 0.55
+
+
+def phase_dryrun(dev, results, smoke=False, jobs=None):
+    """The dry-run cost pass over every (arch x shape) cell on the
+    256-chip and 512-chip placeholder meshes, through ``dryrun.driver``
+    (a process a cell, ``jobs`` at a time) into a temporary directory."""
+    import contextlib
+    import io
+    import math
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as RL
+    from repro_torch.models import registry as R
+
+    tag = "dryrun"
+    t_phase = time.perf_counter()
+    jobs = jobs or os.cpu_count() or 1
+    meshes = {"single": 256, "multi": 512}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dryrun-") as tmp:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fails = D.driver(tmp, list(meshes), smoke, force=True,
+                             timeout_s=900, jobs=jobs)
+        recs = []
+        for f in sorted(os.listdir(tmp)):
+            with open(os.path.join(tmp, f)) as fh:
+                recs.append(json.load(fh))
+    wall = time.perf_counter() - t_phase
+    n_cells = len(R.ARCHS) * len(R.SHAPES) * len(meshes)
+    check(fails == 0 and len(recs) == n_cells,
+          f"[{tag}] {fails} cells failed, {len(recs)} of {n_cells} "
+          f"records:\n{buf.getvalue()[-3000:]}")
+    out, dominant = {}, {}
+    for rec in recs:
+        name = f"{rec['arch']} x {rec['shape']} [{rec['mesh']}]"
+        reason = R.cell_is_skipped(rec["arch"], rec["shape"])
+        if rec["status"] == "skipped":
+            check(rec["reason"] == reason, f"[{tag}] {name}: skip reason "
+                  f"{rec['reason']!r}, the registry's {reason!r}")
+            continue
+        rf, mem = rec["roofline"], rec["memory"]
+        ok = (rec["status"] == "ok" and reason is None
+              and rec["chips"] == meshes[rec["mesh"]]
+              and min(rf["compute_s"], rf["memory_s"],
+                      rf["collective_s"]) >= 0
+              and rf["dominant"] in ("compute", "memory", "collective")
+              and mem["peak_bytes_per_device"] > 0
+              and 0 < rf["useful_ratio"] and math.isfinite(
+                  rf["useful_ratio"]))
+        log(f"[{tag}] {RL.summarize_cell(rec)} peak "
+            f"{mem['peak_bytes_per_device'] / 1e9:.2f} GB "
+            f"({rec['timing']['total_s']:.1f} s)")
+        check(ok, f"[{tag}] {name}: record out of contract")
+        dominant[rf["dominant"]] = dominant.get(rf["dominant"], 0) + 1
+        out[name] = dict(dominant=rf["dominant"], compute_s=rf["compute_s"],
+                         memory_s=rf["memory_s"],
+                         collective_s=rf["collective_s"],
+                         useful_ratio=rf["useful_ratio"],
+                         peak_gb=mem["peak_bytes_per_device"] / 1e9,
+                         fits_hbm_80g=mem["fits_hbm_80g"],
+                         seconds=rec["timing"]["total_s"])
+    # 512 chips split the data axes twice as wide as 256 ("pod" x
+    # "data"): where the batch splits over them, each chip's share of
+    # the batch's work halves
+    by_cell = {}
+    for rec in recs:
+        if rec["status"] == "ok":
+            by_cell.setdefault((rec["arch"], rec["shape"]), {})[
+                rec["mesh"]] = rec["cost"]
+    worst = {}
+    n_split = 0
+    for (arch, shape), cost in sorted(by_cell.items()):
+        spec = R.SHAPES[shape]
+        batch = min(spec.global_batch, 4) if smoke else spec.global_batch
+        if batch % (2 * 16):                                # pod x data
+            continue
+        n_split += 1
+        for key, kind, most in (
+                ("flops_per_chip", None, DRYRUN_FLOPS_SPLIT_MAX),
+                ("bytes_per_chip", "train", DRYRUN_TRAIN_BYTES_SPLIT_MAX),
+                ("bytes_per_chip", "prefill", None),
+                ("bytes_per_chip", "decode", None)):
+            if kind not in (None, spec.kind):
+                continue
+            ratio = cost["multi"][key] / cost["single"][key]
+            name = f"{key} ({kind or 'all'})"
+            worst[name] = max(worst.get(name, 0.0), ratio)
+            check(most is None or ratio <= most, f"[{tag}] {arch} x "
+                  f"{shape}: {key} on 512 chips is {ratio:.4f} of 256's")
+    log(f"[{tag}] each chip's share on 512 chips against 256, over the "
+        f"{n_split} cells whose batch splits over pod x data, at most: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in worst.items())
+        + f" (limits: FLOPs {DRYRUN_FLOPS_SPLIT_MAX}, train bytes "
+        f"{DRYRUN_TRAIN_BYTES_SPLIT_MAX})")
+    log(f"[{tag}] {len(out)} cells ok on {list(meshes)} meshes, "
+        f"{n_cells - len(out)} skipped; dominant terms "
+        f"{dominant}; {jobs} processes; phase {wall:.1f} s")
+    results[f"_{tag}"] = dict(cells=out, split_worst=worst, phase_s=wall,
+                              jobs=jobs,
+                              device=RL.DEVICE)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3770,6 +4341,8 @@ def main() -> int:
     phase_encdec(dev, results)
     for name, n in phase_examples(dev, results).items():
         counts[name] += n
+    phase_mesh_lm(dev, results)
+    phase_dryrun(dev, results)
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -22,7 +22,9 @@ package restores in the other, bit for bit:
 Restore fills a template tree: a tensor leaf comes back as a tensor of
 the stored dtype on the template leaf's device, any other leaf as a
 numpy array (a bfloat16 one as a CPU tensor).  Elastic re-sharding
-(``shardings=``) waits (``ROADMAP.md``, Queue 1 item 6).  The artifact
+(``shardings=``, a tree of ``NamedSharding`` matching the template or
+one for every leaf) lays each restored leaf out over the current mesh
+(``lay_out``): every leaf then comes back a ``ShardedTensor``.  The artifact
 store content-addresses its slabs with ``sha256_bytes``/``sha256_file``
 and writes through ``atomic_dir``."""
 from __future__ import annotations
@@ -39,6 +41,8 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import NamedSharding, device_put
 
 
 def sha256_bytes(data) -> str:
@@ -244,11 +248,8 @@ def restore_checkpoint(path: str, template: Any,
                        step: Optional[int] = None,
                        shardings: Any = None) -> Tuple[Any, int]:
     """Restore into the structure of ``template`` (the newest step when
-    ``step`` is None)."""
-    if shardings is not None:
-        raise NotImplementedError("restoring onto a sharded layout is not "
-                                  "ported yet (see ROADMAP.md Queue 1 "
-                                  "item 6, the LM's multi-rank half)")
+    ``step`` is None); with ``shardings``, laid out over their mesh
+    (``lay_out``): the reference's elastic-resume hook."""
     if step is None:
         steps = _steps(path)
         if not steps:
@@ -282,7 +283,28 @@ def restore_checkpoint(path: str, template: Any,
                 out[c["offset"]:c["offset"] + part.shape[0]] = \
                     part.view(store)
         leaves.append(_leaf_out(out, dt, tmpl))
-    return tree_unflatten(template, leaves), step
+    tree = tree_unflatten(template, leaves)
+    if shardings is not None:
+        tree = lay_out(tree, shardings)
+    return tree, step
+
+
+def lay_out(tree: Any, shardings: Any) -> Any:
+    """Every leaf of ``tree`` (a tensor, or an array or scalar taken as
+    one) as a ``ShardedTensor`` over its ``NamedSharding``: the leaf's
+    own in ``shardings``, a tree matching ``tree``, or one sharding for
+    every leaf (``parallel.sharding.device_put``, which splits each
+    named dim in equal parts)."""
+    leaves = tree_flatten(tree)
+    if isinstance(shardings, NamedSharding):
+        specs = [shardings] * len(leaves)
+    else:
+        specs = tree_flatten(shardings)
+        if len(specs) != len(leaves):
+            raise ValueError(f"{len(specs)} shardings for a tree of "
+                             f"{len(leaves)} leaves")
+    return tree_unflatten(tree, [device_put(torch.as_tensor(leaf), sh)
+                                 for leaf, sh in zip(leaves, specs)])
 
 
 class CheckpointManager:

@@ -4,6 +4,9 @@ decay [arXiv:2404.05892].  Port of ``repro.configs.rwkv6_3b``; the WKV
 recurrence is the hot spot (``kernels/wkv6``)."""
 from repro_torch.models.lm import LMConfig
 
+# long_500k runs: constant-size recurrent state.
+SKIPS = {}
+
 
 def config() -> LMConfig:
     return LMConfig(

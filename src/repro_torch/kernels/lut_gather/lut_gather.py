@@ -96,6 +96,9 @@ BLOCK_SMEM_RESERVED = 1024
 MAX_THREADS_PER_SM = 2048
 MAX_BLOCKS_PER_SM = 32
 SM_REGISTERS = 65_536
+# SMs of the H100 SXM, the card the geometry is written for: the count a
+# geometry is worked out for where no card is at hand (CPU tables)
+H100_SM_COUNT = 132
 
 ENC_U8, ENC_I32, ENC_INT4, ENC_NONE = 0, 1, 2, -1
 

@@ -420,6 +420,15 @@ TUNE_CANDIDATES = tuple(1 << i for i in range(
     K.MAX_BLOCK_ROWS.bit_length()))
 
 
+# Launches that time within this share of the fastest count as level,
+# and among level ones the tuner keeps the largest cap (a cap binds every
+# batch a plan serves, and a larger one lets big batches take the rows
+# fused_geometry wants).  Identical launches timed over 20 host-bound
+# calls on an H100 spread by up to 50% (PERF.md, section 6), so a margin
+# narrower than that would pick by noise.
+TUNE_LEVEL_MARGIN = 0.5
+
+
 def _time_calls(fn, codes: torch.Tensor, iters: int) -> float:
     """Seconds a call of ``fn(codes)`` after one warm-up call: CUDA
     events on the card, the host clock on the CPU."""
@@ -440,21 +449,33 @@ def _time_calls(fn, codes: torch.Tensor, iters: int) -> float:
     return start.elapsed_time(end) / 1e3 / iters
 
 
+def _time_cap(net, codes: torch.Tensor, cap: int, pipeline: bool,
+              iters: int) -> float:
+    """Seconds a fused call of ``net`` under ``cap`` rows a block."""
+    return _time_calls(
+        lambda c: K.lut_network_fused(c, net, pipeline=pipeline,
+                                      max_rows=cap), codes, iters)
+
+
 def tune_block_b(tables: List, batch: int = 2048,
                  candidates: Sequence[int] = TUNE_CANDIDATES,
                  iters: int = 20, n_in0: Optional[int] = None,
                  pipeline: bool = False, budget: Optional[int] = None,
                  device: DeviceLike = None):
-    """Sweep the fused kernel's cap on rows per block; return
+    """Choose the fused kernel's cap on rows per block; return
     ``(best_cap, {cap: seconds a call})``.
 
     Candidates are clamped to the probe ``batch`` and kept where the
     shared-memory ledger at that many rows fits ``budget`` (and no more
     than MAX_BLOCK_ROWS, the ledger's cap); none left raises the
-    reference's ValueError.  Each survivor runs ``iters`` calls on
-    random codes after a warm-up call, timed with CUDA events on the
-    tables' card.  On CPU tables every cap runs the same plain version,
-    so the host-clock times there rank nothing."""
+    reference's ValueError.  Caps that give the same launch at the
+    probe (``fused_geometry`` on the SMs of the tables' card, or the
+    H100's on the CPU) form a group, and one cap a group
+    is timed: ``iters`` calls on random codes after a warm-up call, with
+    CUDA events on the tables' card.  Every cap reports its group's
+    time.  Among the groups within TUNE_LEVEL_MARGIN of the fastest the
+    largest cap wins.  On CPU tables every cap runs the same plain
+    version, so the host-clock times there rank nothing."""
     budget = SMEM_BUDGET_BYTES if budget is None else int(budget)
     dev = tables[0].conn.device if device is None else resolve_device(
         device)
@@ -470,17 +491,26 @@ def tune_block_b(tables: List, batch: int = 2048,
             "no block_b candidate fits the fused shared-memory budget for "
             "this network — serve it through the per-layer engine "
             "(make_network_fn(fused=False))")
+    n_sms = (K._sm_count(dev.index) if dev.type == "cuda"
+             else K.H100_SM_COUNT)
+    groups: Dict[K.FusedGeometry, List[int]] = {}
+    for cap in cand:
+        g = K.fused_geometry(int(batch), n_sms, n_in, widths, pipeline,
+                             max_rows=cap, budget=budget)
+        groups.setdefault(g, []).append(cap)
     gen = torch.Generator().manual_seed(0)
     codes = torch.randint(0, 2 ** tables[0].in_bits, (int(batch), n_in),
                           generator=gen, dtype=torch.int32).to(dev)
     net = K.FusedNet(_layer_args(tables, n_in))
-    timings = {}
-    for cap in cand:
-        timings[cap] = _time_calls(
-            lambda c: K.lut_network_fused(c, net, pipeline=pipeline,
-                                          max_rows=cap), codes, iters)
-    best = min(timings, key=timings.get)
-    return best, timings
+    timings, group_s = {}, []
+    for caps in groups.values():
+        secs = _time_cap(net, codes, caps[-1], pipeline, iters)
+        group_s.append((secs, caps[-1]))
+        timings.update({c: secs for c in caps})
+    fastest = min(s for s, _ in group_s)
+    best = max(cap for s, cap in group_s
+               if s <= fastest * (1.0 + TUNE_LEVEL_MARGIN))
+    return best, dict(sorted(timings.items()))
 
 
 def _tune_plan(tables: List, plan: SegmentPlan, tune_batch: int

@@ -15,9 +15,9 @@ It runs on the CUDA card unless ``--device`` names another device.
 Every registered architecture trains, the encoder-decoder (whisper) on
 random frames and tokens drawn as the reference draws them; an MoE
 model's load-balancing term is printed as ``aux``.  Checkpoints are in
-the reference's layout: its ``restore_checkpoint`` reads them.  Not ported:
-``--mesh``, a model sharded over process groups (``ROADMAP.md``, Queue 1
-item 6, the LM's multi-rank half).
+the reference's layout: its ``restore_checkpoint`` reads them.  The
+reference's docstring names a ``--mesh`` flag that its parser does not
+have, so this launcher has none either.
 """
 from __future__ import annotations
 

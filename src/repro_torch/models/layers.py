@@ -1,8 +1,8 @@
 """Layer primitives of the language models (port of
 ``repro.models.layers``): norms, RoPE, grouped-query self- and
 cross-attention, the dense FFN and the token-choice mixture of experts
-(``moe_apply``).  The expert-parallel dispatch (``moe_apply_ep``) waits
-with the rest of the multi-card work (``ROADMAP.md``, Queue 1 item 6).
+(``moe_apply``) with its expert-parallel dispatch over a device mesh
+(``moe_apply_ep``).
 
 Conventions, as in the reference:
 
@@ -505,8 +505,13 @@ def moe_dispatch(s: MoESpec, eids: torch.Tensor, cap: int):
     of each slot, slot_ok (E, cap) whether it is filled, slot (T, k)
     flat slot e * cap + rank of each assignment, keep (T, k) whether it
     fits)."""
+    return _slots(eids, s.n_experts, cap)
+
+
+def _slots(eids: torch.Tensor, E: int, cap: int):
+    """``moe_dispatch`` over expert ids 0..E-1."""
     T, k = eids.shape
-    E, A = s.n_experts, T * k
+    A = T * k
     flat_e = eids.reshape(A)
     order = torch.argsort(flat_e, stable=True)
     counts = _counts(flat_e, E)
@@ -536,20 +541,133 @@ def moe_apply(p: dict, s: MoESpec, x: torch.Tensor,
     gates, eids, aux = moe_route(p, s, xt)
     cap = moe_capacity(s, T, no_drop)
     slot_tok, slot_ok, slot, keep = moe_dispatch(s, eids, cap)
+    y = _experts(xt, p["experts"], gates.to(x.dtype), eids, slot_tok,
+                 slot_ok, slot, keep)
+    if "shared" in p:
+        y = y + ffn_apply(p["shared"], "swiglu", x).reshape(T, D)
+    return y.reshape(B, S, D), aux
+
+
+def _experts(xt: torch.Tensor, w: dict, gates: torch.Tensor,
+             eids: torch.Tensor, slot_tok, slot_ok, slot, keep
+             ) -> torch.Tensor:
+    """The experts ``w`` (E, ...) on the tokens (T, D) their slots hold
+    (``_slots``), combined: each token's kept rows scaled by its gates
+    (T, k) and added in ascending expert id from its first, in the
+    tokens' dtype (the reference's order of its scatter-add; dropped
+    assignments add zeros)."""
+    D = xt.shape[1]
     buf = torch.where(slot_ok[..., None], xt[slot_tok], 0.0)   # (E, cap, D)
     # each expert's SwiGLU on its rows: three batched GEMMs
-    w = p["experts"]
     h = F.silu(torch.bmm(buf, w["w_gate"])) * torch.bmm(buf, w["w_in"])
     out = torch.bmm(h, w["w_out"]).reshape(-1, D)
-    # each token's k rows in ascending expert id, the reference's order
-    # of its scatter-add
     perm = torch.argsort(eids, dim=-1)
     sl, kp = slot.gather(1, perm), keep.gather(1, perm)
     vals = torch.where(kp[..., None], out[sl], 0.0) \
-        * gates.gather(1, perm).to(x.dtype)[..., None]       # (T, k, D)
+        * gates.gather(1, perm)[..., None]                     # (T, k, D)
     y = vals[:, 0]
-    for j in range(1, s.top_k):
+    for j in range(1, eids.shape[1]):
         y = y + vals[:, j]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel MoE dispatch over a device mesh
+# ---------------------------------------------------------------------------
+
+def _entry(mesh, coords: dict) -> torch.device:
+    """The device of the mesh entry at ``coords`` (axis -> index; index 0
+    on every axis not named)."""
+    return mesh.devices[tuple(coords.get(a, 0) for a in mesh.axis_names)]
+
+
+def moe_apply_ep(p: dict, s: MoESpec, x: torch.Tensor, mesh,
+                 ep_axis: str = "model", no_drop: bool = False,
+                 fsdp_axis: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel dispatch over ``mesh`` (``parallel.sharding.Mesh``),
+    single-controller: the reference's ``shard_map`` program run entry by
+    entry.  x (B, S, D) -> (y, aux), on x's device.
+
+    Routing runs on the whole batch, as the reference's runs outside its
+    ``shard_map`` (``moe_route``).  The tokens split over the mesh's data
+    axes (``pod``, ``data``, the first outermost) into slices of T_loc =
+    T / (their product) tokens, and the capacity is the reference's at
+    T_loc (``moe_capacity``).  The entry at (data slice i, column c of
+    ``ep_axis``) holds the column's E / ep experts (``w[c*e_loc:(c+1)*
+    e_loc]``, copied to its device) and packs, runs and combines the
+    slice's assignments to them (``_experts``, in ascending expert id).
+    The reference's ``psum`` over ``ep_axis`` is the sum of the columns'
+    partial outputs in column order, on x's device.  ``fsdp_axis``: each
+    column's weights lie split along dim 1 over that axis's entries and
+    are gathered (a ``cat`` of the pieces) on the entry that runs them,
+    as the reference's ``all_gather``; the values are the same.
+    Gradients flow through the slices, copies and sums.  Raises
+    ValueError where the reference's ``shard_map`` cannot split: an axis
+    not in the mesh, experts that do not divide over ``ep_axis``, tokens
+    that do not divide over the data axes, weights that do not divide
+    over ``fsdp_axis``."""
+    B, S, D = x.shape
+    T = B * S
+    E = s.n_experts
+    for a in (ep_axis, fsdp_axis):
+        if a is not None and a not in mesh.shape:
+            raise ValueError(f"axis {a!r} not in mesh {mesh.axis_names}")
+    dp = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    ep = mesh.shape[ep_axis]
+    if E % ep:
+        raise ValueError(f"{E} experts not divisible by {ep}-way EP")
+    e_loc = E // ep
+    dp_shape = [mesh.shape[a] for a in dp]
+    n_dp = int(np.prod(dp_shape))
+    if T % n_dp:
+        raise ValueError(f"{T} tokens do not split over the {n_dp} entries "
+                         f"of the data axes {dp}")
+    T_loc = T // n_dp
+    n_fs = mesh.shape[fsdp_axis] if fsdp_axis is not None else 1
+    if D % n_fs or s.d_ff % n_fs:
+        raise ValueError(f"expert weights (d_model {D}, d_ff {s.d_ff}) do "
+                         f"not split over the {n_fs} entries of "
+                         f"{fsdp_axis!r}")
+
+    xt = x.reshape(T, D)
+    gates, eids, aux = moe_route(p, s, xt)
+    gates = gates.to(x.dtype)
+    cap = moe_capacity(s, T_loc, no_drop)
+    w = p["experts"]
+    outs = []
+    for i, idx in enumerate(np.ndindex(*dp_shape)):
+        coords = dict(zip(dp, idx))
+        rows = slice(i * T_loc, (i + 1) * T_loc)
+        y = None
+        for c in range(ep):
+            coords[ep_axis] = c
+            dev = _entry(mesh, coords)
+            cols = slice(c * e_loc, (c + 1) * e_loc)
+            wc = {}
+            for name, t in w.items():
+                t = t[cols]
+                if fsdp_axis is not None:
+                    # the column's shards, one an entry of fsdp_axis,
+                    # gathered on this entry
+                    n = t.shape[1] // n_fs
+                    t = torch.cat([
+                        t[:, j * n:(j + 1) * n].to(
+                            _entry(mesh, {**coords, fsdp_axis: j})).to(dev)
+                        for j in range(n_fs)], dim=1)
+                wc[name] = t.to(dev)
+            e = eids[rows].to(dev)
+            local = e - c * e_loc
+            mine = (local >= 0) & (local < e_loc)
+            slot_tok, slot_ok, slot, keep = _slots(
+                torch.where(mine, local, e_loc), e_loc + 1, cap)
+            keep = keep & mine
+            part = _experts(xt[rows].to(dev), wc, gates[rows].to(dev), e,
+                            slot_tok[:e_loc], slot_ok[:e_loc],
+                            torch.where(keep, slot, 0), keep).to(x.device)
+            y = part if y is None else y + part
+        outs.append(y)
+    y = torch.cat(outs) if len(outs) > 1 else outs[0]
     if "shared" in p:
         y = y + ffn_apply(p["shared"], "swiglu", x).reshape(T, D)
     return y.reshape(B, S, D), aux

@@ -2,9 +2,16 @@
 sliding-window (``local``) attention and the RG-LRU (``rglru``) mixers,
 each paired with the dense FFN (``dense``) or the mixture of experts
 (``moe``), and RWKV6 time mix paired with RWKV channel mix
-(``("rwkv", "rwkv_cm")``).  Sharding waits (``ROADMAP.md``, Queue 1
-item 6): ``moe_ep``, ``moe_ep_fsdp`` and ``seq_parallel`` raise
-``NotImplementedError``.  The encoder-decoder is ``models/encdec.py``.
+(``("rwkv", "rwkv_cm")``).  The encoder-decoder is ``models/encdec.py``.
+
+Under an ambient mesh (``with mesh:`` of ``parallel.sharding.Mesh``)
+whose ``model`` axis divides ``n_experts``, ``moe_ep`` sends each MoE
+block through the expert-parallel dispatch (``layers.moe_apply_ep``),
+with its weights gathered over ``data`` under ``moe_ep_fsdp`` where
+``data`` divides ``d_model``; otherwise the block runs ``moe_apply``,
+as the reference falls back.  ``seq_parallel`` pins nothing here
+(``_residual_constraint``): the port lays out no residual stream over a
+mesh, so the flag never changes a value.
 
 Parameters are plain dictionaries of tensors with one entry per layer
 (``params["blocks"]``), run by a plain loop: the reference stacks layers
@@ -59,14 +66,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as NN
 from repro_torch.models import recurrent as RC
 from repro_torch.models.layers import AttnSpec
+from repro_torch.parallel.sharding import ambient_mesh
 
 MIXERS = ("attn", "local", "rglru", "rwkv")
 CHANNELS = ("dense", "moe", "rwkv_cm")
-_UNPORTED = "see ROADMAP.md Queue 1 item 6, the LM's multi-rank half"
-
-# LMConfig fields of the multi-card work, which is not ported, with the
-# only value the port takes
-_UNPORTED_FIELDS = dict(moe_ep=False, moe_ep_fsdp=False, seq_parallel=False)
 
 
 # ---------------------------------------------------------------------------
@@ -92,8 +95,8 @@ class LMConfig:
     rope_theta: float = 10000.0
     window: Optional[int] = None        # sliding window for "local"
     tie_embeddings: bool = False
-    # MoE (where channel == "moe"); the expert-parallel dispatch is not
-    # ported (only its defaults)
+    # MoE (where channel == "moe"); moe_ep: expert-parallel dispatch
+    # under an ambient mesh (moe_ep_fsdp: its weights gathered over data)
     n_experts: int = 0
     top_k: int = 0
     moe_d_ff: int = 0
@@ -117,12 +120,6 @@ class LMConfig:
     use_wkv_kernel: bool = True
 
     def __post_init__(self):
-        for field, default in _UNPORTED_FIELDS.items():
-            if getattr(self, field) != default:
-                raise NotImplementedError(
-                    f"LMConfig.{field}={getattr(self, field)!r}: the "
-                    f"expert-parallel dispatch and sequence parallelism "
-                    f"are not ported yet ({_UNPORTED})")
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}")
 
@@ -295,7 +292,7 @@ def block_apply(cfg: LMConfig, kind: Tuple[str, str], p: dict,
     else:
         a, new_mix = RC.rwkv_time_mix(p["rwkv"], cfg.n_heads, h, cache,
                                       use_kernel=cfg.use_wkv_kernel)
-    x = x + a
+    x = _residual_constraint(cfg, x + a)
     h2 = _norm_apply(cfg, p["norm2"], x)
     aux = 0.0
     if channel == "dense":
@@ -304,12 +301,39 @@ def block_apply(cfg: LMConfig, kind: Tuple[str, str], p: dict,
         # decode keeps every assignment: capacity eviction is a training
         # throughput trade, never wanted at serve time
         decode = cache is not None and x.shape[1] == 1
-        f, aux = NN.moe_apply(p["moe"], cfg.moe_spec(), h2, no_drop=decode)
+        f, aux = _moe(cfg, p["moe"], h2, decode)
     else:
         f, cm_new = RC.rwkv_channel_mix(p["rwkv"], h2, cache)
         if cache is not None:
             new_mix = {**new_mix, **cm_new}
-    return x + f, (new_mix if cache is not None else None), aux
+    return (_residual_constraint(cfg, x + f),
+            (new_mix if cache is not None else None), aux)
+
+
+def _residual_constraint(cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    """The reference pins the residual stream to the sequence-parallel
+    layout here under ``seq_parallel`` (a GSPMD sharding constraint,
+    which never changes a value).  The port's blocks take whole tensors
+    and lay no activation out over a mesh, so this is the identity with
+    or without the flag and a mesh."""
+    return x
+
+
+def _moe(cfg: LMConfig, p: dict, h: torch.Tensor, no_drop: bool):
+    """An MoE channel: ``moe_apply_ep`` under ``moe_ep`` when the
+    ambient mesh has a ``model`` axis that divides ``n_experts`` (its
+    weights gathered over ``data`` under ``moe_ep_fsdp`` when ``data``
+    divides ``d_model``), else ``moe_apply``, as the reference chooses."""
+    mesh = ambient_mesh() if cfg.moe_ep else None
+    if mesh is not None and "model" in mesh.shape \
+            and cfg.n_experts % mesh.shape["model"] == 0:
+        fsdp_axis = None
+        if cfg.moe_ep_fsdp and "data" in mesh.shape \
+                and cfg.d_model % mesh.shape["data"] == 0:
+            fsdp_axis = "data"
+        return NN.moe_apply_ep(p, cfg.moe_spec(), h, mesh, no_drop=no_drop,
+                               fsdp_axis=fsdp_axis)
+    return NN.moe_apply(p, cfg.moe_spec(), h, no_drop=no_drop)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ the port's counterpart of the reference's virtual devices.  On one card
 such a mesh checks that a sharded path is right; it does not scale,
 since the shards share the card's SMs.  On the CPU,
 ``device.ensure_host_devices(n)`` lets the CPU stand as ``n`` entries.
-A mesh does not mix CPU and CUDA entries.
+A mesh of ``meta`` entries stands for devices that are not there (the
+dry-run's 256 and 512 chips, ``launch/mesh.py``): it runs nothing and
+has no streams.  A mesh does not mix CPU, CUDA and meta entries.
 
 The rule tables map '/'-joined parameter paths (``stacks/0/attn/wq``)
 to candidate ``PartitionSpec``s, exactly as the reference's do.  The
@@ -34,10 +36,12 @@ with the reference's paths.  Which paths consume them:
 population by ``lutdnn_population_rules``, ``data.loader`` splits
 batches by ``data_sharding``, and the batch-sharded LUT engine
 (``kernels.lut_gather.ops.lut_network_fused_sharded``) splits over every
-axis but ``model``.  Placing a model's parameters by ``lm_rules`` needs
-process groups and waits on the LM's multi-rank half (ROADMAP.md Queue
-1 item 6); ``attach`` (a sharded abstract tree) waits on the dry-run
-cost pass.
+axis but ``model``, ``device_put`` lays a tensor out over a mesh (the
+checkpoint's elastic restore), and ``attach`` pairs an abstract tree
+(``ShapeDtypeStruct`` leaves) with its shardings for the dry-run cost
+pass (``models.registry``).  The port's LM steps take whole tensors:
+only the expert-parallel MoE dispatch (``models.layers.moe_apply_ep``)
+runs over a mesh's entries.
 """
 from __future__ import annotations
 
@@ -96,7 +100,8 @@ class Mesh:
         kinds = {d.type for d in flat}
         if len(kinds) > 1:
             raise ValueError(f"a mesh mixes device types {sorted(kinds)}: "
-                             f"its entries are all CPU or all CUDA")
+                             f"its entries are all CPU, all CUDA or all "
+                             f"meta")
         arr.flat[:] = flat
         self.devices = arr
         self.device_list: List[torch.device] = flat
@@ -161,8 +166,9 @@ class Mesh:
 
 def _entry_device(d) -> torch.device:
     dev = torch.device(d)
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"a mesh takes CPU or CUDA devices, not {dev}")
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"a mesh takes CPU, CUDA or meta devices, not "
+                         f"{dev}")
     return resolve_device(dev) if dev.type == "cuda" else dev
 
 
@@ -293,6 +299,56 @@ def tree_map_with_path(fn, tree, *rest, path: Tuple[str, ...] = ()):
     if tree is None:
         return None
     return fn(path, tree, *rest)
+
+
+class ShapeDtypeStruct:
+    """An abstract tensor: its shape, dtype and (``attach``) sharding,
+    with no storage; immutable, as the reference's.  Not a dataclass, so
+    the tree walkers take it as a leaf."""
+
+    __slots__ = ("shape", "dtype", "sharding")
+
+    def __init__(self, shape, dtype: torch.dtype,
+                 sharding: Optional[NamedSharding] = None):
+        for k, v in (("shape", tuple(int(d) for d in shape)),
+                     ("dtype", dtype), ("sharding", sharding)):
+            object.__setattr__(self, k, v)
+
+    def __setattr__(self, name, value):
+        raise AttributeError("ShapeDtypeStruct is immutable")
+
+    @property
+    def nbytes(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64)) \
+            * torch.empty((), dtype=self.dtype).element_size()
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, ShapeDtypeStruct)
+                and (self.shape, self.dtype, self.sharding)
+                == (other.shape, other.dtype, other.sharding))
+
+    def __hash__(self) -> int:
+        return hash((self.shape, self.dtype, self.sharding))
+
+    def __repr__(self) -> str:
+        return (f"ShapeDtypeStruct(shape={self.shape}, dtype={self.dtype}"
+                + (f", sharding={self.sharding!r}" if self.sharding else "")
+                + ")")
+
+
+def abstract(tree: Any) -> Any:
+    """A tree of tensors (``meta`` ones, say) as ``ShapeDtypeStruct``
+    leaves."""
+    return tree_map_with_path(
+        lambda _, t: ShapeDtypeStruct(t.shape, t.dtype), tree)
+
+
+def attach(tree: Any, shardings: Any) -> Any:
+    """An abstract tree and a matching tree of ``NamedSharding`` ->
+    ``ShapeDtypeStruct`` leaves that carry their shardings."""
+    return tree_map_with_path(
+        lambda _, sds, sh: ShapeDtypeStruct(sds.shape, sds.dtype,
+                                            sharding=sh), tree, shardings)
 
 
 def _shape(leaf) -> Tuple[int, ...]:

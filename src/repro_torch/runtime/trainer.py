@@ -8,7 +8,8 @@
 * straggler detection (``runtime/straggler.py``): on detection the
   trainer checkpoints eagerly so a reschedule loses no work;
 * resume: ``try_resume`` restores the newest checkpoint into the
-  current state's structure and devices.
+  current state's structure and devices, and (``shardings=``) also lays
+  it out over a mesh.
 
 A ``layout`` pair ``(to_saved, from_saved)`` maps the state to the tree
 a checkpoint holds and back (``models.lm.checkpoint_layout`` gives an
@@ -29,7 +30,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
-from repro_torch.checkpoint import AsyncCheckpointer, CheckpointManager
+from repro_torch.checkpoint import (AsyncCheckpointer, CheckpointManager,
+                                    lay_out)
 from repro_torch.runtime.straggler import StragglerMonitor
 
 log = logging.getLogger("repro_torch.runtime")
@@ -64,6 +66,7 @@ class Trainer:
         self.monitor = StragglerMonitor(threshold=cfg.straggler_threshold)
         self.failure_hook = failure_hook   # test injection point
         self.to_saved, self.from_saved = layout or (_same, _same)
+        self.sharded_state: Any = None     # try_resume(shardings=)
         self.step = 0
         self.history: List[Dict[str, float]] = []
         self.recoveries = 0
@@ -75,14 +78,23 @@ class Trainer:
                                    "step": self.step})
 
     def try_resume(self, shardings: Any = None) -> bool:
-        """Returns True if a checkpoint was restored."""
+        """Returns True if a checkpoint was restored into ``self.state``
+        (whole tensors on the current state's devices, which ``run``
+        steps on).  ``shardings``, as the reference's, match
+        ``{"state": state, "step": 0}`` (or are one ``NamedSharding`` for
+        every leaf): the restored state, in this trainer's layout, is
+        also laid out over their mesh as ``ShardedTensor`` leaves
+        (``checkpoint.lay_out``) in ``self.sharded_state``."""
         try:
-            tree, step = self.manager.restore_latest(
-                {"state": self.to_saved(self.state), "step": 0}, shardings)
+            tree, _ = self.manager.restore_latest(
+                {"state": self.to_saved(self.state), "step": 0})
         except FileNotFoundError:
             return False
-        self.state = self.from_saved(tree["state"])
         self.step = int(tree["step"])
+        tree = {"state": self.from_saved(tree["state"]), "step": tree["step"]}
+        self.state = tree["state"]
+        self.sharded_state = (None if shardings is None
+                              else lay_out(tree, shardings)["state"])
         log.info("resumed at step %d", self.step)
         return True
 

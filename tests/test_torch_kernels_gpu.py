@@ -634,3 +634,83 @@ def test_kernels_on_a_second_card(order):
         capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0 and "ok" in proc.stdout, \
         proc.stdout[-2000:] + proc.stderr[-4000:]
+
+
+def _one_card_mesh(device):
+    from repro_torch.parallel.sharding import Mesh
+    return Mesh(np.array([device] * 4, dtype=object).reshape(2, 2),
+                ("data", "model"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("no_drop", [False, True])
+def test_moe_apply_ep_on_one_card_matches_cpu(cuda, no_drop):
+    """The expert-parallel dispatch on ``[cuda:0] * 4`` (a 2x2 mesh)
+    against the same call on a CPU mesh: outputs within 1e-5 (float32,
+    TF32 off; the products' sums differ in order), the same aux within
+    1e-6, and the gathered-weights form the same bits on the card."""
+    from repro_torch.models import layers as NN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s = NN.MoESpec(8, 2, 64, 128, capacity_factor=1.25)
+    p = NN.moe_init(torch.Generator().manual_seed(0), s, torch.float32,
+                    "cpu")
+    x = torch.randn(4, 32, 64, generator=torch.Generator().manual_seed(1))
+    pc = {k: ({n: t.to(cuda) for n, t in v.items()}) for k, v in p.items()}
+    cpu_mesh = _one_card_mesh(torch.device("cpu"))
+    want, want_aux = NN.moe_apply_ep(p, s, x, cpu_mesh, no_drop=no_drop)
+    mesh = _one_card_mesh(cuda)
+    got, aux = NN.moe_apply_ep(pc, s, x.to(cuda), mesh, no_drop=no_drop)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert abs(float(aux) - float(want_aux)) <= 1e-6
+    again, _ = NN.moe_apply_ep(pc, s, x.to(cuda), mesh, no_drop=no_drop,
+                               fsdp_axis="data")
+    assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+def test_restore_checkpoint_onto_cuda_entries(cuda, tmp_path):
+    """``restore_checkpoint(shardings=)`` onto a 2x2 mesh of the card:
+    every shard on the card, equal to its slice of the saved leaf."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.parallel.sharding import NamedSharding, P
+    tree = {"w": torch.randn(8, 6, generator=torch.Generator()
+                             .manual_seed(2)),
+            "b": torch.arange(4, dtype=torch.int32)}
+    save_checkpoint(str(tmp_path), 1, tree)
+    mesh = _one_card_mesh(cuda)
+    sh = {"w": NamedSharding(mesh, P("model", "data")),
+          "b": NamedSharding(mesh, P())}
+    out, step = restore_checkpoint(str(tmp_path), tree, shardings=sh)
+    assert step == 1
+    for name, leaf in tree.items():
+        assert out[name].sharding == sh[name]
+        for shard in out[name].addressable_shards:
+            assert shard.data.device == cuda
+            assert torch.equal(shard.data.cpu(), leaf[shard.index])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["hdr_add2", "jsc_xl_add2"])
+def test_tune_block_b_keeps_the_largest_level_cap(cuda, model):
+    """On the card, for both paper networks at a 2048-row probe: caps of
+    one launch share one time, and the cap returned is the largest among
+    the launches within TUNE_LEVEL_MARGIN of the fastest."""
+    import chip_smoke
+    from repro_torch.configs import paper_models as PM
+    from repro_torch.core.lut_synth import pack_tables_int4
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    from repro_torch.kernels.lut_gather import ops
+    spec = getattr(PM, model)()
+    tables = pack_tables_int4(chip_smoke.random_tables(spec, 11, cuda))
+    best, timings = ops.tune_block_b(tables, n_in0=spec.in_features)
+    widths = [t.conn.shape[0] for t in tables]
+    n_sms = K._sm_count(cuda.index)
+    groups = {}
+    for cap in timings:
+        groups.setdefault(K.fused_geometry(
+            2048, n_sms, spec.in_features, widths, False, max_rows=cap),
+            set()).add(timings[cap])
+    assert all(len(t) == 1 for t in groups.values())
+    fastest = min(timings.values())
+    assert best == max(c for c, t in timings.items()
+                       if t <= fastest * (1 + ops.TUNE_LEVEL_MARGIN))

@@ -217,6 +217,47 @@ def test_tune_block_b_contract_and_refusal():
                                   _oracle(codes))
 
 
+def test_tune_block_b_times_one_cap_a_launch(monkeypatch):
+    """Caps that give one launch at the probe (``fused_geometry`` on the
+    H100's SMs for CPU tables) are timed once, by their largest cap, and
+    every cap reports its group's time; among the groups within
+    TUNE_LEVEL_MARGIN of the fastest the largest cap wins, so
+    ``make_network_fn(block_b="auto")`` serves B=4096 at the rows
+    ``fused_geometry`` picks with no cap.  (The timer is stubbed: on the
+    CPU every cap runs the same plain version.)"""
+    tt = _port_tables(True)
+    K, n_sms = tops.K, tops.K.H100_SM_COUNT
+    widths = [t.conn.shape[0] for t in tt]
+    groups = {}
+    for cap in tops.TUNE_CANDIDATES:
+        g = K.fused_geometry(2048, n_sms, 16, widths, False, max_rows=cap)
+        groups.setdefault(g, []).append(cap)
+    assert sorted(map(tuple, groups.values())) == [(1,), (2,), (4, 8, 16, 32)]
+    for secs, best in (({1: 3e-5, 2: 1.4e-5, 32: 1e-5}, 32),    # 2 level
+                       ({1: 3e-5, 2: 1e-5, 32: 1.6e-5}, 2),     # 32 slower
+                       ({1: 1e-5, 2: 1e-5, 32: 1e-5}, 32)):     # all level
+        timed = []
+
+        def fake(net, codes, cap, pipeline, iters, secs=secs, timed=timed):
+            timed.append(cap)
+            return secs[cap]
+
+        monkeypatch.setattr(tops, "_time_cap", fake)
+        got, timings = tops.tune_block_b(tt, batch=2048, n_in0=16)
+        assert sorted(timed) == [1, 2, 32]          # one a launch
+        assert got == best
+        assert timings == {c: secs[max(caps)] for caps in groups.values()
+                           for c in caps}
+    monkeypatch.setattr(tops, "_time_cap", lambda *a: 1e-5)
+    fn = tops.make_network_fn(tt, n_in0=16, block_b="auto", fused=True,
+                              device="cpu")
+    cap = fn.execution_plan.block_b[0]
+    assert cap == K.MAX_BLOCK_ROWS
+    assert K.fused_geometry(4096, n_sms, 16, widths, False,
+                            max_rows=cap).rows == K.fused_geometry(
+        4096, n_sms, 16, widths, False).rows
+
+
 def _rows(n: int, seed: int = 3) -> np.ndarray:
     return _codes(n, seed)
 
