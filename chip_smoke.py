@@ -32,11 +32,18 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              ``ModelRegistry`` on ``cuda`` (~2000 Poisson requests, one
              hot-swap to a second seed mid-stream: 0 failed, 0 dropped,
              every answer equal to the plain forward of the version that
-             answered), then the same artifact through the pipelined and
-             per-layer plans of ``make_network_fn`` (the per-layer one a
-             chain of kernel-3 launches from one host call).  Launch counts are
-             zeroed just before and read just after; every kernel must
-             have launched.
+             answered), five times, each under a ``FlushProbe``: p50 /
+             p99, the flushes, the largest split into host, card and
+             copy time, the garbage collections; no collection may
+             hold a waiting or served request over
+             ``COLLECTION_BOUND_MS`` (the host's own pauses measured
+             first; the largest flushes are logged, not bounded).
+             Then the same artifact through the pipelined and per-layer
+             plans of ``make_network_fn`` (the per-layer one a chain of
+             kernel-3 launches from one host call).  Launch counts are
+             zeroed just before each stream and read just after (the
+             kernels line counts the first and the two plans); every
+             kernel must have launched.
 6. fleet   — the serving fleet across processes: two worker processes
              on the card (``LutFleet(transport="process")``) serve
              HDR-Add2 from a saved artifact under 8000 Poisson requests
@@ -79,9 +86,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              tables disagree are counted), and kernel 1 equals the plain
              codes bit for bit.  The tables saved as an artifact and
              served by ``serve --lut --artifact-dir D --device cuda``
-             (~2000 requests through the registry, counts zeroed just
-             before and read after: 0 failed, 0 dropped, kernel 1
-             launched); then ``serve --lut --save-artifact`` trains the
+             five times (~2000 requests through the registry each, counts
+             zeroed just before and read after: 0 failed, 0 dropped,
+             kernel 1 launched; flushes probed and bounded as in
+             ``serve``); then ``serve --lut --save-artifact`` trains the
              tiny jsc model from scratch on the card.
 9. search  — the SparseLUT toolflow at HDR-Add2's published widths:
              a 4-member ``search_connectivity_population`` (100 steps,
@@ -96,7 +104,8 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              from ``[train]``'s two starts (mean accuracy >=
              A_REF_SEARCH - 0.05, and >= ``[train]``'s random mean -
              0.01), synthesised, saved with ``search_provenance`` in the
-             manifest and served by ``serve --lut`` (kernel 1 counted).
+             manifest and served by ``serve --lut`` (kernel 1 counted,
+             flushes bounded as in ``serve``).
              The same search on ``serving_mesh(2, devices=[cuda:0] * 2)``
              (two members a shard) ends on the unsharded run's masks and
              active sets and selects the same best member.
@@ -227,7 +236,9 @@ Phases (any failure exits non-zero; no phase's failure is caught):
              at most DRYRUN_TRAIN_BYTES_SPLIT_MAX of them.
 
 ``python3 chip_smoke.py --phases lm_attn,lm_train`` runs only the named
-phases (after ``device``) and prints no result line.
+phases (after ``device``), prints no result line and writes their
+details to ``chiprun_out/chip_smoke_partial.json`` (also when a check
+fails).
 
 Output: a ``kernels`` JSON line (each kernel's ``ms`` by CUDA events
 and ``device_ms`` on the device clock, beside its bound, plain and
@@ -244,6 +255,7 @@ shards phases), the ``nvidia-smi`` line, and as the last line
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import os
 import subprocess
@@ -503,6 +515,213 @@ def bound_ms(nbytes: int, ops: int):
     b = nbytes / HBM_BYTES_PER_S * 1e3
     o = ops / ALU_OPS_PER_S * 1e3
     return (b, "bytes") if b >= o else (o, "operations")
+
+
+# ---------------------------------------------------------------------------
+# served flushes: each one's split, and the collections during it
+# ---------------------------------------------------------------------------
+
+# [serve]'s stream and [train]'s serve --lut each run STREAM_RUNS times;
+# in every run (and in [search]'s serve --lut) no garbage collection may
+# hold a waiting or served request over COLLECTION_BOUND_MS: before the
+# heap was frozen while batchers serve (launch/batching.py), full passes
+# of 177-267 ms held requests on H100 80GB HBM3 cards (700 W), and 52
+# served runs after it on four hosts kept every such collection within
+# 4.12 ms.  Each run's largest flush (FlushRecord.kernel_s: buffer fill,
+# copy in, forward, copy back) is logged with its split, not bounded:
+# the same runs kept every flush within 10.056 ms, but a flush stretches
+# with the host's load, all of its parts at once, with no collection and
+# the card idle (22.297 ms on one host; up to 27.431 ms
+# beside 8 processes spinning on the CPU, serve_ab.py --burn 8, against
+# 3.212 ms alone on the same host), and nothing the process can read
+# there tells that time from its own: the CPU clocks count 10 ms ticks
+# and charge a thread the host took its core from.  A flush is "long"
+# past LONG_FLUSH_X times its run's median.
+STREAM_RUNS = 5
+COLLECTION_BOUND_MS = 20.0
+LONG_FLUSH_X = 10
+
+
+def _frames(frame, depth: int = 3) -> str:
+    """The innermost ``depth`` frames of a stack, 'file:line func <
+    ...'."""
+    out = []
+    while frame is not None and len(out) < depth:
+        c = frame.f_code
+        out.append(f"{os.path.basename(c.co_filename)}:{frame.f_lineno} "
+                   f"{c.co_name}")
+        frame = frame.f_back
+    return " < ".join(out)
+
+
+class FlushProbe:
+    """While active, records every ``MicroBatcher`` flush in this
+    process.  On the host clock (``time.monotonic``): the host's work
+    before the forward (buffer fill, the batch's copy to the card),
+    the forward's host call, the wait for the card with the copy back
+    (to the end of ``kernel_s``), and completing the handles.  On the
+    card (CUDA events): the flush's start to the forward (the copy in
+    and anything queued before it) and the forward.  And every garbage
+    collection (``gc.callbacks``; a full pass with the frames whose
+    allocation set it off), and the CPU time of the process (every
+    thread) and of the batcher during the flush, to the CPU clock's
+    step (``host_pauses``).  It wraps ``MicroBatcher._flush_inner`` and
+    ``ops.make_network_fn`` for its span and changes no result."""
+
+    def __init__(self, tag: str):
+        self.tag = tag
+        self.recs, self.gcs = [], []
+        self._tls = threading.local()
+        self._seq = itertools.count()
+
+    def __enter__(self):
+        import gc
+
+        import torch
+        from repro_torch.kernels.lut_gather import ops
+        from repro_torch.launch.batching import MicroBatcher
+
+        probe, tls = self, self._tls
+        self._orig = (MicroBatcher._flush_inner, ops.make_network_fn)
+        orig_flush, orig_make = self._orig
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def flush_inner(mb, pending, cause, buf, n, fkey):
+            rec = dict(seq=next(probe._seq), fill=n, cause=cause)
+            rec["e0"] = event()
+            tls.rec = rec
+            rec["t0"] = time.monotonic()
+            rec["c0"] = (time.process_time(), time.thread_time())
+            try:
+                return orig_flush(mb, pending, cause, buf, n, fkey)
+            finally:
+                rec["c3"] = (time.process_time(), time.thread_time())
+                rec["t3"] = time.monotonic()
+                tls.rec = None
+                rec["flush"] = mb.flushes[-1]
+                probe.recs.append(rec)
+
+        def make_network_fn(*a, **kw):
+            fn = orig_make(*a, **kw)
+
+            @functools.wraps(fn)
+            def timed(x):
+                rec = getattr(tls, "rec", None)
+                if rec is None:          # a warm-up outside any flush
+                    return fn(x)
+                rec["t1"] = time.monotonic()
+                rec["e1"] = event()
+                out = fn(x)
+                rec["e2"] = event()
+                rec["t2"] = time.monotonic()
+                return out
+            return timed
+
+        def on_gc(phase, info):
+            # a full pass also names the code whose allocation set it off
+            where = (_frames(sys._getframe(1))
+                     if phase == "start" and info["generation"] == 2 else "")
+            probe.gcs.append((phase, info["generation"], time.monotonic(),
+                              threading.current_thread().name, where))
+
+        self._on_gc = on_gc
+        MicroBatcher._flush_inner = flush_inner
+        ops.make_network_fn = make_network_fn
+        gc.callbacks.append(on_gc)
+        self._t_start = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        from repro_torch.kernels.lut_gather import ops
+        from repro_torch.launch.batching import MicroBatcher
+
+        MicroBatcher._flush_inner, ops.make_network_fn = self._orig
+        gc.callbacks.remove(self._on_gc)
+        return False
+
+    def report(self, p50: float, p99: float) -> dict:
+        """Each flush's split (ms) and the run's summary; logs the run's
+        line, its largest flush and every long one."""
+        import torch
+        torch.cuda.synchronize()
+        # collections: (start, end, generation, thread name, where)
+        colls, open_ = [], {}
+        for phase, gen, t, name, where in self.gcs:
+            if phase == "start":
+                open_[name] = (t, gen, where)
+            elif name in open_:
+                t0, g, where = open_.pop(name)
+                colls.append((t0, t, g, name, where))
+        flushes = []
+        for r in sorted(self.recs, key=lambda r: r["seq"]):
+            fr = r["flush"]
+            end = r["t0"] + fr.kernel_s
+            f = dict(seq=r["seq"], fill=fr.fill, cause=fr.cause,
+                     tag=(fr.tag or "")[:12], failed=fr.failed,
+                     waited_ms=fr.waited_s * 1e3,
+                     engine_ms=fr.kernel_s * 1e3,
+                     flush_ms=(r["t3"] - r["t0"]) * 1e3,
+                     cpu_ms=(r["c3"][0] - r["c0"][0]) * 1e3,
+                     own_cpu_ms=(r["c3"][1] - r["c0"][1]) * 1e3,
+                     t_ms=(r["t0"] - self._t_start) * 1e3)
+            if "t2" in r:
+                f.update(host_ms=(r["t1"] - r["t0"]) * 1e3,
+                         launch_ms=(r["t2"] - r["t1"]) * 1e3,
+                         copy_ms=(end - r["t2"]) * 1e3,
+                         complete_ms=(r["t3"] - end) * 1e3,
+                         dev_pre_ms=r["e0"].elapsed_time(r["e1"]),
+                         dev_ms=r["e1"].elapsed_time(r["e2"]))
+            # collections that overlap the flush or its oldest request's
+            # wait
+            f["gcs"] = [[g, round((b - a) * 1e3, 3), name] + ([where]
+                        if where else [])
+                        for a, b, g, name, where in colls
+                        if a < r["t3"] and b > r["t0"] - fr.waited_s]
+            flushes.append(f)
+        eng = np.array([f["engine_ms"] for f in flushes])
+        med = float(np.median(eng))
+        big = max(flushes, key=lambda f: f["engine_ms"])
+        long_ = [f for f in flushes if f["engine_ms"] > LONG_FLUSH_X * med]
+        gen_n = [sum(1 for c in colls if c[2] == g) for g in range(3)]
+        # the longest collection while a request was waiting or served
+        in_flush = max((g[1] for f in flushes for g in f["gcs"]),
+                       default=0.0)
+        out = dict(p50_ms=p50, p99_ms=p99, flushes=len(flushes),
+                   median_ms=med, max_ms=big["engine_ms"],
+                   long=len(long_), gc_by_gen=gen_n,
+                   gc_max_ms=max(((c[1] - c[0]) * 1e3 for c in colls),
+                                 default=0.0), gc_in_flush_ms=in_flush,
+                   max_waited_ms=max(f["waited_ms"] for f in flushes),
+                   largest=big, long_flushes=long_, each=flushes)
+        log(f"{self.tag} p50 {p50:.3f} ms p99 {p99:.3f} ms, {len(flushes)} "
+            f"flushes, engine ms median {med:.3f} max "
+            f"{big['engine_ms']:.3f}, {len(long_)} over {LONG_FLUSH_X}x "
+            f"the median; collections by generation "
+            f"{gen_n} (longest {out['gc_max_ms']:.2f} ms, while requests "
+            f"waited {in_flush:.2f} ms); oldest wait at most "
+            f"{out['max_waited_ms']:.3f} ms")
+        for f in [big] + [f for f in long_ if f is not big][:8]:
+            log(f"{self.tag}   flush {f['seq']} at {f['t_ms']:.1f} ms: "
+                + _flush_line(f))
+        return out
+
+
+def _flush_line(f) -> str:
+    split = ("" if "dev_ms" not in f else
+             f"host {f['host_ms']:.3f} (card before the forward "
+             f"{f['dev_pre_ms']:.3f}), forward call {f['launch_ms']:.3f} "
+             f"(card {f['dev_ms']:.4f}), wait + copy back "
+             f"{f['copy_ms']:.3f}, completing {f['complete_ms']:.3f}; ")
+    return (f"engine {f['engine_ms']:.3f} ms, fill {f['fill']} "
+            f"({f['cause']}), waited {f['waited_ms']:.3f}: {split}flush "
+            f"{f['flush_ms']:.3f} ms, CPU the process's {f['cpu_ms']:.3f} "
+            f"the batcher's {f['own_cpu_ms']:.3f}; collections {f['gcs']}")
 
 
 # ---------------------------------------------------------------------------
@@ -779,15 +998,140 @@ def time_lut(dev, results, rng):
                         f"({by}: {nbytes} B, {ops} ops)")
 
 
+def host_pauses(seconds: float = 1.0, wait_s: float = 2e-3) -> dict:
+    """The host's own pauses, with this process idle but for one thread:
+    that thread reads the clock in a tight loop for ``seconds`` (every
+    gap between two reads over 1 ms is time the thread did not run),
+    then times ``seconds / 4 / wait_s`` waits of ``wait_s`` on an event
+    that is never set (what a batcher's deadline wait overshoots by),
+    and reads the step of the process's CPU clock (about a microsecond
+    on most Linux hosts; one scheduler tick where CPU time is counted in
+    ticks)."""
+    gaps, t = [], time.monotonic()
+    t_end = t + seconds
+    while t < t_end:
+        now = time.monotonic()
+        if now - t > 1e-3:
+            gaps.append((now - t) * 1e3)
+        t = now
+    ev, over = threading.Event(), []
+    for _ in range(int(seconds / 4 / wait_s)):
+        t = time.monotonic()
+        ev.wait(wait_s)
+        over.append((time.monotonic() - t - wait_s) * 1e3)
+    steps = []
+    for _ in range(2):
+        c0 = time.process_time()
+        while (c1 := time.process_time()) == c0:
+            pass
+        steps.append(c1 - c0)
+    return dict(gaps_over_1ms=len(gaps), cpu_step_ms=max(steps) * 1e3,
+                gaps_over_5ms=sum(g > 5 for g in gaps),
+                largest_gap_ms=max(gaps, default=0.0),
+                wait_over_ms_p50=float(np.percentile(over, 50)),
+                wait_over_ms_p99=float(np.percentile(over, 99)),
+                wait_over_ms_max=max(over))
+
+
+def log_host_pauses(tag) -> dict:
+    hp = host_pauses()
+    log(f"{tag} the host's pauses over 1 s of a clock loop, this process "
+        f"otherwise idle: {hp['gaps_over_1ms']} over 1 ms, "
+        f"{hp['gaps_over_5ms']} over 5 ms, largest "
+        f"{hp['largest_gap_ms']:.3f} ms; 2 ms waits overshoot by p50 "
+        f"{hp['wait_over_ms_p50']:.3f} p99 {hp['wait_over_ms_p99']:.3f} "
+        f"max {hp['wait_over_ms_max']:.3f} ms; the CPU clock's step "
+        f"{hp['cpu_step_ms']:.3f} ms")
+    return hp
+
+
+def check_collections(tag, runs) -> None:
+    """No garbage collection over ``COLLECTION_BOUND_MS`` while a request
+    of any run waited or was served (checked after all runs have
+    logged); the largest flush of all runs is logged."""
+    for i, r in enumerate(runs):
+        check(r["gc_in_flush_ms"] <= COLLECTION_BOUND_MS,
+              f"{tag} run {i + 1}: a garbage collection held requests "
+              f"{r['gc_in_flush_ms']:.3f} ms, over {COLLECTION_BOUND_MS} "
+              f"ms")
+    p50s = [r["p50_ms"] for r in runs]
+    p99s = [r["p99_ms"] for r in runs]
+    log(f"{tag} {len(runs)} runs: p50 {min(p50s):.3f}-{max(p50s):.3f} ms, "
+        f"p99 {min(p99s):.3f}-{max(p99s):.3f} ms, largest flush "
+        f"{max(r['max_ms'] for r in runs):.3f} ms, collections while "
+        f"requests waited at most "
+        f"{max(r['gc_in_flush_ms'] for r in runs):.3f} ms (bound "
+        f"{COLLECTION_BOUND_MS} ms)")
+
+
+def serve_stream(dev, run, paths, rows, want, rate):
+    """One [serve] stream: ``paths[0]`` registered, ``len(rows)`` Poisson
+    requests at ``rate`` through the registry, a swap to ``paths[1]``
+    half-way, every flush under a ``FlushProbe``.  Checks 0 failed, 0
+    dropped, every answer equal to the plain forward of the version that
+    gave it, both versions answering, kernel 1 launched (counts zeroed
+    just before the stream, read just after).  -> (report, counts)"""
+    from repro_torch.kernels.lut_gather import lut_gather as K
+    from repro_torch.launch.batching import (latency_percentiles_ms,
+                                             replay_open_loop)
+    from repro_torch.launch.registry import ModelRegistry
+
+    n_req = len(rows)
+    tag = f"[serve] run {run}:"
+    with FlushProbe(tag) as probe:
+        reg = ModelRegistry(microbatch=256, deadline_s=2e-3, device=dev)
+        reg.register("hdr-add2", paths[0])   # warm-up builds + launches
+        if run == 1:
+            log(f"[serve] registered {os.path.basename(paths[0])}: "
+                f"{reg.get('hdr-add2').plan.describe()}")
+        swap_report = {}
+
+        def swapper():
+            time.sleep(n_req / rate / 2)
+            swap_report["r"] = reg.swap("hdr-add2", paths[1])
+
+        # ---- the main path: counts zeroed just before, read just after
+        K.reset_launch_counts()
+        th = threading.Thread(target=swapper)
+        th.start()
+        handles = replay_open_loop(reg.client("hdr-add2"), rows, rate=rate,
+                                   seed=3, timeout_s=120.0)
+        th.join(timeout=120.0)
+        check(not th.is_alive(), "swap did not finish")
+        counts = K.launch_counts()
+        # ----
+        reg.close()
+    failed = sum(1 for h in handles if h is None or h.failed)
+    check(len(handles) == n_req and failed == 0,
+          f"{tag} {failed} of {n_req} requests failed or were dropped")
+    tags = {}
+    for i, h in enumerate(handles):
+        check(h.tag in want, f"{tag} request {i} answered by unknown tag "
+              f"{h.tag}")
+        check(np.array_equal(h.result(timeout=1.0), want[h.tag][i]),
+              f"{tag} request {i} differs from the plain forward of "
+              f"{h.tag[:12]}")
+        tags[h.tag] = tags.get(h.tag, 0) + 1
+    check(len(tags) == 2, f"{tag} the swap did not land mid-stream: {tags}")
+    check(counts["lut_network_fused"] > 0,
+          f"{tag} the registry served without launching the fused kernel")
+    r = swap_report["r"]
+    log(f"{tag} {n_req} requests at {rate:.0f}/s: 0 failed, 0 dropped, "
+        f"answers by version {[(k[:12], v) for k, v in tags.items()]}, "
+        f"swap warm {r.warm_s * 1e3:.2f} ms blackout "
+        f"{r.blackout_s * 1e6:.1f} us")
+    rep = probe.report(*latency_percentiles_ms(handles, qs=(50, 99)))
+    rep.update(tags=tags, swap_warm_s=r.warm_s, swap_blackout_s=r.blackout_s,
+               counts=counts)
+    return rep, counts
+
+
 def phase_serve(dev, results):
     import torch
     from repro_torch.artifact import load_artifact, save_artifact
     from repro_torch.configs import paper_models as PM
     from repro_torch.kernels.lut_gather import lut_gather as K
     from repro_torch.kernels.lut_gather import ops, ref
-    from repro_torch.launch.batching import (latency_percentiles_ms,
-                                             replay_open_loop)
-    from repro_torch.launch.registry import ModelRegistry
 
     spec = PM.hdr_add2()
     n_req, rate = 2000, 4000.0
@@ -807,27 +1151,15 @@ def phase_serve(dev, results):
             want[art.artifact_id] = plain.cpu().numpy()
             paths.append(path)
 
-        reg = ModelRegistry(microbatch=256, deadline_s=2e-3, device=dev)
-        reg.register("hdr-add2", paths[0])   # warm-up builds + launches
-        plan = reg.get("hdr-add2").plan
-        log(f"[serve] registered {os.path.basename(paths[0])}: "
-              f"{plan.describe()}")
-        swap_report = {}
-
-        def swapper():
-            time.sleep(n_req / rate / 2)
-            swap_report["r"] = reg.swap("hdr-add2", paths[1])
-
-        # ---- the main path: counts zeroed just before, read just after
-        K.reset_launch_counts()
-        th = threading.Thread(target=swapper)
-        th.start()
-        handles = replay_open_loop(reg.client("hdr-add2"), rows, rate=rate,
-                                   seed=3, timeout_s=120.0)
-        th.join(timeout=120.0)
-        check(not th.is_alive(), "swap did not finish")
-        served_counts = K.launch_counts()
+        # the stream STREAM_RUNS times; the kernels line counts run 1
+        pauses = log_host_pauses("[serve]")
+        runs, served_counts = [], None
+        for run in range(1, STREAM_RUNS + 1):
+            rep, c = serve_stream(dev, run, paths, rows, want, rate)
+            runs.append(rep)
+            served_counts = served_counts or c
         # the pipelined and per-layer plans, on the same artifact
+        K.reset_launch_counts()
         art = load_artifact(paths[1], unpack_int4=False, device=dev)
         x = torch.from_numpy(rows).to(dev)
         for kw in ({"pipeline": True}, {"fused": False}):
@@ -836,38 +1168,18 @@ def phase_serve(dev, results):
                 got = fn(x[lo:lo + 256]).cpu().numpy()
                 check(np.array_equal(got, want[art.artifact_id][lo:lo + 256]),
                       f"make_network_fn({kw}) differs from plain forward")
-        counts = K.launch_counts()
-        # ----
-        stats = reg.stats()["hdr-add2"]
-        reg.close()
+        counts = {k: served_counts[k] + n
+                  for k, n in K.launch_counts().items()}
 
-    failed = sum(1 for h in handles if h is None or h.failed)
-    check(len(handles) == n_req and failed == 0,
-          f"{failed} of {n_req} requests failed or were dropped")
-    tags = {}
-    for i, h in enumerate(handles):
-        check(h.tag in want, f"request {i} answered by unknown tag {h.tag}")
-        check(np.array_equal(h.result(timeout=1.0), want[h.tag][i]),
-              f"request {i} differs from the plain forward of {h.tag[:12]}")
-        tags[h.tag] = tags.get(h.tag, 0) + 1
-    check(len(tags) == 2, f"the swap did not land mid-stream: {tags}")
-    check(served_counts["lut_network_fused"] > 0,
-          "the registry served without launching the fused kernel")
+    results["_serve"] = dict(requests=n_req, rate=rate, runs=runs,
+                             host_pauses=pauses,
+                             served_counts=served_counts, counts=counts)
+    check_collections("[serve]", runs)
     for name in LUT_KERNELS:
         check(counts[name] > 0, f"kernel {name} never launched on the "
               f"main path")
-    p50, p99 = latency_percentiles_ms(handles, qs=(50, 99))
-    r = swap_report["r"]
-    log(f"[serve] {n_req} requests at {rate:.0f}/s: 0 failed, 0 dropped, "
-        f"answers by version {[(k[:12], v) for k, v in tags.items()]}, "
-        f"p50 {p50:.3f} ms p99 {p99:.3f} ms, swap warm "
-        f"{r.warm_s * 1e3:.2f} ms blackout {r.blackout_s * 1e6:.1f} us, "
-        f"flushes {stats['flushes']}")
-    log(f"[serve] launches on the main path: {counts}")
-    results["_serve"] = dict(requests=n_req, rate=rate, p50_ms=p50,
-                             p99_ms=p99, tags=tags, swap_warm_s=r.warm_s,
-                             swap_blackout_s=r.blackout_s,
-                             served_counts=served_counts, counts=counts)
+    log(f"[serve] launches on the main path (run 1 and the two plans): "
+        f"{counts}")
     return counts
 
 
@@ -1305,9 +1617,12 @@ def phase_shards(dev, results):
     p50, p99 = latency_percentiles_ms(handles, qs=(50, 99))
     fp50, fp99 = latency_percentiles_ms(fleet_handles, qs=(50, 99))
     base = results.get("_serve", {})
-    base_txt = (f"[serve]'s unsharded registry p50 {base['p50_ms']:.3f} "
-                f"ms p99 {base['p99_ms']:.3f} ms" if base
-                else "[serve] not run")
+    base_txt = (f"[serve]'s unsharded registry p50 "
+                f"{min(r['p50_ms'] for r in base['runs']):.3f}-"
+                f"{max(r['p50_ms'] for r in base['runs']):.3f} ms p99 "
+                f"{min(r['p99_ms'] for r in base['runs']):.3f}-"
+                f"{max(r['p99_ms'] for r in base['runs']):.3f} ms"
+                if base else "[serve] not run")
     log(f"[shards] registry on four shards of one card: "
         f"{SHARD_REQUESTS} requests at {SHARD_RATE:.0f}/s, 0 failed, 0 "
         f"dropped, bit for bit; p50 {p50:.3f} ms p99 {p99:.3f} ms "
@@ -1504,13 +1819,16 @@ def synth_check(tag, model, spec, test, dev):
 
 
 def serve_check(tag, dev, d, tables, spec, data, lut, provenance,
-                search=None, n_req=2000):
+                search=None, n_req=2000, runs=1):
     """Save the tables as an artifact under ``d`` (int4) and serve it by
-    ``serve --lut --artifact-dir d --device cuda`` in-process: a cold
-    load, ``n_req`` requests through the registry at 4000/s.  Checks 0
-    failed, 0 dropped, the served accuracy equal to the tables' own on
-    the same requests, and kernel 1 launched, its count zeroed just
-    before and read just after.  -> (result, counts, artifact path)"""
+    ``serve --lut --artifact-dir d --device cuda`` in-process, ``runs``
+    times: each a cold load and ``n_req`` requests through the registry
+    at 4000/s under a ``FlushProbe``.  Checks in each run 0 failed, 0
+    dropped, the served accuracy equal to the tables' own on the same
+    requests, and kernel 1 launched, its count zeroed just before and
+    read just after; then no collection over ``COLLECTION_BOUND_MS``
+    while a request of any run waited.  -> (run 1's result and counts,
+    the artifact path, each run's report)"""
     import contextlib
     import io
 
@@ -1525,33 +1843,40 @@ def serve_check(tag, dev, d, tables, spec, data, lut, provenance,
                       == data["test"]["y"][idx]).mean())
     path = save_artifact(d, tables, name="hdr-add2", spec=spec,
                          provenance=provenance, search=search)
-    out = io.StringIO()
-    # ---- the main path: counts zeroed just before, read just after
-    K.reset_launch_counts()
-    with contextlib.redirect_stdout(out):
-        res = serve.main(["--lut", "--artifact-dir", d, "--device",
-                          str(dev), "--requests", str(n_req), "--rate",
-                          "4000", "--microbatch", "256"])
-    counts = K.launch_counts()
-    # ----
-    text = out.getvalue()
-    log("\n".join(f"{tag} serve: {ln}" for ln in text.splitlines()))
-    check("lut-serve[artifact]" in text and res.origin == "artifact",
-          f"{tag} serve --lut did not cold-load the artifact")
-    check(res.failed == 0 and res.dropped == 0 and res.served == n_req,
-          f"{tag} {res.failed} failed, {res.dropped} dropped of {n_req}")
-    check(res.accuracy == want_acc, f"{tag} served accuracy "
-          f"{res.accuracy} != the tables' {want_acc} on those requests")
-    check(counts["lut_network_fused"] > 0,
-          f"{tag} serve --lut never launched kernel 1")
-    log(f"{tag} served {os.path.basename(path)}: {n_req} requests, 0 "
-        f"failed, 0 dropped, accuracy {res.accuracy:.4f} (the tables' "
-        f"own on those rows {want_acc:.4f}), p50 {res.p50_ms:.3f} ms "
-        f"p99 {res.p99_ms:.3f} ms, {len(res.flush_ms)} flushes, engine "
-        f"ms a flush mean {res.engine_ms:.3f} p50 "
-        f"{np.median(res.flush_ms):.3f} max {max(res.flush_ms):.3f}; "
-        f"launches {counts}")
-    return res, counts, path
+    first, reports = None, []
+    pauses = log_host_pauses(tag)
+    for run in range(1, runs + 1):
+        rtag = f"{tag} serve run {run}:"
+        out = io.StringIO()
+        with FlushProbe(rtag) as probe:
+            # ---- the main path: counts zeroed just before, read just after
+            K.reset_launch_counts()
+            with contextlib.redirect_stdout(out):
+                res = serve.main(["--lut", "--artifact-dir", d, "--device",
+                                  str(dev), "--requests", str(n_req),
+                                  "--rate", "4000", "--microbatch", "256"])
+            counts = K.launch_counts()
+            # ----
+        text = out.getvalue()
+        if run == 1:
+            log("\n".join(f"{tag} serve: {ln}" for ln in text.splitlines()))
+        check("lut-serve[artifact]" in text and res.origin == "artifact",
+              f"{rtag} serve --lut did not cold-load the artifact")
+        check(res.failed == 0 and res.dropped == 0 and res.served == n_req,
+              f"{rtag} {res.failed} failed, {res.dropped} dropped of {n_req}")
+        check(res.accuracy == want_acc, f"{rtag} served accuracy "
+              f"{res.accuracy} != the tables' {want_acc} on those requests")
+        check(counts["lut_network_fused"] > 0,
+              f"{rtag} serve --lut never launched kernel 1")
+        log(f"{rtag} {os.path.basename(path)}: {n_req} requests, 0 failed, "
+            f"0 dropped, accuracy {res.accuracy:.4f} (the tables' own on "
+            f"those rows {want_acc:.4f}); launches {counts}")
+        rep = probe.report(res.p50_ms, res.p99_ms)
+        rep.update(counts=counts, host_pauses=pauses)
+        reports.append(rep)
+        first = first or (res, counts)
+    check_collections(tag, reports)
+    return first[0], first[1], path, reports
 
 
 def phase_train(dev, results, steps=TRAIN_STEPS, n_samples=12000):
@@ -1652,10 +1977,10 @@ def phase_train(dev, results, steps=TRAIN_STEPS, n_samples=12000):
     # (3) the saved artifact served through serve --lut on the card
     with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
         d, e = os.path.join(tmp, "hdr"), os.path.join(tmp, "jsc")
-        res, counts, _ = serve_check(
+        res, counts, _, served_runs = serve_check(
             "[train]", dev, d, tables, spec, data, lut,
             provenance={"dataset": "mnist", "n_samples": n_samples,
-                        "train_steps": steps})
+                        "train_steps": steps}, runs=STREAM_RUNS)
 
         # (4) train + synthesise + save through the entry point
         out = io.StringIO()
@@ -1681,8 +2006,7 @@ def phase_train(dev, results, steps=TRAIN_STEPS, n_samples=12000):
         idle_share_untraced=1 - busy / 10 / step_ms[0],
         trace_kernels=n_kernels, accuracies=accs,
         accuracy=acc, a_ref=A_REF, **synth,
-        served_accuracy=res.accuracy, p50_ms=res.p50_ms,
-        p99_ms=res.p99_ms, flush_ms=res.flush_ms,
+        served_accuracy=res.accuracy, served_runs=served_runs,
         counts=counts, cli_train_s=cli_s,
         cli_accuracy=res4.accuracy, wall_s=wall_phase)
     return {k: counts.get(k, 0) for k in LUT_KERNELS}
@@ -1968,7 +2292,7 @@ def phase_search(dev, results, steps=SEARCH_STEPS, train_steps=TRAIN_STEPS,
         lr=SEARCH_LR, seeds=[SEARCH_SEEDS[best]], history=hist)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-search-") as tmp:
         d = os.path.join(tmp, "hdr-searched")
-        res, counts, path = serve_check(
+        res, counts, path, served_runs = serve_check(
             "[search]", dev, d, tables, spec, data, lut,
             provenance={"dataset": "mnist", "n_samples": n_samples,
                         "train_steps": train_steps}, search=prov)
@@ -1999,7 +2323,7 @@ def phase_search(dev, results, steps=SEARCH_STEPS, train_steps=TRAIN_STEPS,
         sharded_scores=[float(x) for x in sscores],
         accuracies=accs, accuracy=acc, random_mean=rand_mean,
         a_ref_search=A_REF_SEARCH, **synth, served_accuracy=res.accuracy,
-        p50_ms=res.p50_ms, p99_ms=res.p99_ms, counts=counts,
+        served_runs=served_runs, counts=counts,
         artifact_id=recomputed, wall_s=wall_phase)
     return {k: counts.get(k, 0) for k in LUT_KERNELS}
 
@@ -4312,8 +4636,16 @@ def main() -> int:
         # a partial run (the named phases only) prints no result line
         log(f"[device] {phase_device()}")
         results = {}
-        for name in sys.argv[2].split(","):
-            globals()[f"phase_{name}"](dev, results)
+        try:
+            for name in sys.argv[2].split(","):
+                globals()[f"phase_{name}"](dev, results)
+        finally:
+            # what the phases recorded, also where a check failed
+            os.makedirs(OUT_DIR, exist_ok=True)
+            with open(os.path.join(OUT_DIR, "chip_smoke_partial.json"),
+                      "w") as f:
+                json.dump({"phases": sys.argv[2], "results": results}, f,
+                          indent=1, default=str)
         log(f"chip_smoke: partial run, phases {sys.argv[2]}")
         return 0
 

@@ -19,11 +19,33 @@ padding rows are computed and discarded.
 ``replay_open_loop`` drives a batcher with a Poisson arrival process on
 the real clock — the measurement harness used by examples/lut_serve.py
 and benchmarks/lut_infer_bench.py.
+
+While any batcher of the process serves, two settings of the whole
+interpreter change; both go back when the last batcher stops.  The
+first batcher to start frees the garbage on the heap (``gc.collect``)
+and freezes what is left (``gc.freeze``): the collector's full pass
+walks every object it tracks with the GIL held, so it stops the batcher
+and every submitter until it ends, 233-237 ms on an H100's host over
+the ~284k objects of a process that had timed and served the LUT
+kernels (~650k once it has also trained a model).  Frozen, that heap is
+not walked; a full pass during serving walks only what was allocated
+since.  An object frozen there that becomes cyclic garbage while the
+process serves waits for the last batcher to stop, so the serving
+classes keep no cycles of their own (a scheduler holds its batcher
+weakly, a stopped batcher leaves its steal group): a swapped-out
+engine is freed by its reference count.  And the interpreter hands the
+GIL to a waiting thread after ``SERVING_SWITCH_S`` instead of its
+default 5 ms: a flush gives the GIL up at each copy and launch, and
+beside a thread that runs Python (a swap loading and planning its
+engine) each give-up cost up to the whole interval, 9.5-21.4 ms a
+flush during swaps on that host.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import queue
+import sys
 import threading
 import time
 from typing import Any, Callable, List, Optional, Sequence
@@ -104,6 +126,41 @@ class FlushRecord:
 _STOP = object()
 
 
+SERVING_SWITCH_S = 5e-4     # the GIL's switch interval while serving
+_serving_lock = threading.Lock()
+_serving = 0                 # batchers started and not yet stopped
+_switch_before = 0.0         # the interval the first batcher found
+
+
+def _serving_started() -> None:
+    """A batcher starts.  The first of the process frees the garbage on
+    the heap, freezes the rest (``gc.freeze`` is O(1): the collector's
+    lists are moved whole) and shortens the GIL's switch interval (never
+    lengthens it); a later one, whose engine was built beside a serving
+    batcher, changes nothing."""
+    global _serving, _switch_before
+    with _serving_lock:
+        if _serving == 0:
+            gc.collect()
+            gc.freeze()
+            _switch_before = sys.getswitchinterval()
+            if _switch_before > SERVING_SWITCH_S:
+                sys.setswitchinterval(SERVING_SWITCH_S)
+        _serving += 1
+
+
+def _serving_stopped() -> None:
+    """A batcher stopped: the last one hands the frozen objects back to
+    the collector and restores the switch interval."""
+    global _serving
+    with _serving_lock:
+        _serving -= 1
+        if _serving == 0:
+            gc.unfreeze()
+            if _switch_before > SERVING_SWITCH_S:
+                sys.setswitchinterval(_switch_before)
+
+
 class BatcherStopped(RuntimeError):
     """A request was submitted after drain began.  Subclasses
     RuntimeError so pre-existing callers keep working; the multi-model
@@ -125,6 +182,11 @@ class MicroBatcher:
     with best-effort backfill) and gates every submit through its
     admission control; ``steal_group`` lets this batcher execute a
     backlogged sibling's flushes while its own scoreboard is empty.
+
+    From ``start`` to ``stop`` a batcher counts as serving, which sets
+    the process's collector and GIL switch interval as the module's
+    docstring says, for every thread of the process, until the last
+    batcher stops.
     """
 
     def __init__(self, serve_fn: Callable, microbatch: int,
@@ -149,6 +211,7 @@ class MicroBatcher:
         self._buf = np.zeros((microbatch, n_features), dtype)
         self._q: "queue.Queue" = queue.Queue()
         self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._frozen_heap = False    # counted in _serving until stop()
         self._stopping = False
         # serializes submit()'s stopping-check-then-enqueue against
         # stop() raising the flag: a request either lands in the queue
@@ -170,6 +233,8 @@ class MicroBatcher:
 
     # -- lifecycle ---------------------------------------------------
     def start(self) -> "MicroBatcher":
+        _serving_started()
+        self._frozen_heap = True
         self._thread.start()
         return self
 
@@ -184,6 +249,9 @@ class MicroBatcher:
             self._cond.notify_all()
         self._q.put(_STOP)
         self._thread.join()
+        if self._frozen_heap:
+            self._frozen_heap = False
+            _serving_stopped()
         if self.steal_group is not None:
             self.steal_group.unregister(self)
         leftovers: List[RequestHandle] = []

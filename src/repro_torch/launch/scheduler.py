@@ -49,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -245,7 +246,11 @@ class ScoreboardScheduler:
             float, float, float]]]] = None
 
     def bind(self, batcher) -> None:
-        self._batcher = batcher
+        # a weak reference: the batcher owns its scheduler, and a cycle
+        # between them would leave a stopped batcher (its engine, its
+        # tables on the card) to the collector's full pass, which does
+        # not walk the heap frozen while serving (batching.py)
+        self._batcher = weakref.proxy(batcher)
 
     def kernel_estimate_s(self) -> Optional[float]:
         return kernel_estimate_s(self._batcher.flushes, self.window)
