@@ -471,7 +471,6 @@ def test_fleet_sheds_provably_late_request_typed(artifacts):
 # soak: every fault class under one continuous stream
 # ---------------------------------------------------------------------------
 
-@pytest.mark.slow
 def test_fleet_soak_kill_corrupt_swap_zero_drops(artifacts):
     rows = _rows(3000, seed=23)
     want = {_tag(artifacts[s]): _want(artifacts[s], rows) for s in (0, 1)}

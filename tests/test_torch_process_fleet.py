@@ -415,7 +415,6 @@ def test_no_mixed_version_microbatch_across_processes(artifacts):
 # soak: every process-fault class under one stream
 # ---------------------------------------------------------------------------
 
-@pytest.mark.slow
 def test_process_fleet_soak_kill_partition_corrupt_swap(artifacts):
     rows = _rows(1500, seed=29)
     want = {_tag(artifacts[s]): _want(artifacts[s], rows) for s in (0, 1)}
